@@ -1,0 +1,7 @@
+"""The paper's coarsening configuration (labels and kinds), as pure Python."""
+from repro_torch.core.coarsening import (BASE, KIND_CONSECUTIVE, KIND_GAPPED,
+                                         KIND_NONE, KINDS, CoarseningConfig,
+                                         resolve)
+
+__all__ = ["BASE", "KIND_CONSECUTIVE", "KIND_GAPPED", "KIND_NONE", "KINDS",
+           "CoarseningConfig", "resolve"]

@@ -1,0 +1,113 @@
+"""Build and load the CUDA kernels: one ``nvcc`` per source, run in parallel,
+each into a shared library with a plain C interface that ``ctypes`` loads.
+
+The build happens at first use, from the sources under ``csrc/`` only, into
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
+A library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded.  ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
+printed once, when a library is built.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("decode_attention", "matmul")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p, ints as c_int
+SIGNATURES = {
+    "decode_attention": {
+        "paged_decode_attention_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+    },
+    "matmul": {
+        "coarsened_matmul_bf16": [_P] * 3 + [_I] * 6 + [_P],
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _start(name: str) -> tuple[Path, subprocess.Popen | None, str]:
+    """Start nvcc for one source (None when its library is already built)."""
+    out = _target(name)
+    if out.exists():
+        return out, None, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True), tmp
+
+
+def build(names=SOURCES) -> dict[str, Path]:
+    """Compile every source that has no library yet, all at once; returns
+    {name: library path}.  Raises with nvcc's output when a build fails."""
+    started = {n: _start(n) for n in names}
+    paths = {}
+    for n, (out, proc, tmp) in started.items():
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                Path(tmp).unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for {n}.cu:\n{log}")
+            os.replace(tmp, out)
+            report = [ln for ln in log.splitlines()
+                      if "ptxas info" in ln or "spill" in ln]
+            print(f"[build] {out.name}\n" + "\n".join(report), flush=True)
+        paths[n] = out
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for one source, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build((name,))[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

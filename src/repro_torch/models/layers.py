@@ -1,0 +1,195 @@
+"""Model building blocks on the paged serving path: RMSNorm, RoPE, the
+GQA q/k/v projection, chunked memory-efficient attention, decode attention
+(dense and paged dispatch) and the SwiGLU FFN.
+
+Mirrors `repro.models.layers` function for function, on PyTorch tensors.
+``backend`` values: ``"ref"`` takes the plain path, ``"cuda"`` the port's
+hand-written kernel (on CPU tensors, that kernel's plain version).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.coarsening import resolve
+from repro_torch.kernels import ops, ref
+from repro_torch.models.config import ModelConfig
+
+NEG = -1e30
+BACKENDS = ("ref", "cuda")
+
+
+def _uses_kernel(backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    return backend == "cuda"
+
+
+def rmsnorm(p, x, eps=1e-6):
+    """`repro/models/layers.py:87`: float32 statistics, scale applied as
+    (1 + scale), result in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + p["scale"].float())).to(dt)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
+    """x: (B,S,H,D); pos: (B,S) int.  Interleaved pairs (x[..., ::2],
+    x[..., 1::2]) rotated in float32, as the reference."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = pos[..., None].float() * freqs                     # (B,S,D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def qkv_project(p, x, cfg: ModelConfig, pos):
+    """x: (B,S,d) -> q (B,S,H,hd), k, v (B,S,Hkv,hd) with qk-norm and RoPE."""
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    b, s, _ = x.shape
+    hd, nq, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(p["knorm"], k, cfg.norm_eps)
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
+                                                          cfg.rope_theta), v
+
+
+def mea_attention(q, k, v, *, causal=True, window=None, q_pos=None,
+                  kv_chunk=512, scale=None):
+    """Chunked (flash-style) attention, `repro/models/layers.py:185`.
+
+    q: (B,Sq,H,D); k, v: (B,Sk,Hkv,D).  q_pos: (B,Sq) global row positions
+    (default arange).  K/V stay in their storage dtype; q is scaled in its own dtype; scores
+    and the running (m, l, acc) are float32, and the probabilities are cast
+    to V's dtype before the PV product — the reference's rounding points.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
+    if q_pos is None:
+        q_pos = torch.arange(sq, device=dev)[None].expand(b, sq)
+    q_pos = q_pos.to(torch.int64)
+    qg = (q.reshape(b, sq, hkv, g, d) * torch.tensor(scale, dtype=q.dtype)
+          ).float()
+    kpos = torch.arange(sk, device=dev)
+    m = torch.full((b, sq, hkv, g), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, kv_chunk):
+        kb, vb = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+        kp = kpos[k0:k0 + kv_chunk]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb.float())
+        mask = torch.ones((b, sq, kp.shape[0]), dtype=torch.bool,
+                          device=dev)                           # (B,q,k)
+        if causal:
+            mask = mask & (kp[None, None, :] <= q_pos[:, :, None])
+        if window is not None:
+            mask = mask & (kp[None, None, :] > q_pos[:, :, None] - window)
+        mask = mask[:, :, None, None, :]                        # (B,q,1,1,k)
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * mask
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (acc / l[..., None]).reshape(b, sq, h, d)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):
+    """Dense single-token attention against a contiguous cache — the plain
+    path of `repro/models/layers.py:397` (backend "ref"): q is scaled and
+    cast to the cache dtype, scores are float32, probabilities are cast to
+    V's dtype before the PV product.  q: (B,1,H,D); caches (B,S,Hkv,D)."""
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = (q.reshape(b, hkv, g, d) * torch.tensor(scale, dtype=q.dtype)
+          ).to(k_cache.dtype)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float())
+    kpos = torch.arange(s, device=q.device)
+    pos = pos.to(torch.int64)
+    mask = kpos[None, :] <= pos[:, None]
+    if window is not None:
+        mask = mask & (kpos[None, :] > pos[:, None] - window)
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full_like(logits, NEG))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
+                           window=None, scale=None, backend: str = "ref",
+                           cfg="auto"):
+    """Single-token attention against a PAGED cache
+    (`repro/models/layers.py:457-502`).  A kernel backend dispatches the
+    block-table split-KV kernel when the per-slot page count tiles by the
+    coarsening degree; everything else gathers the table into contiguous
+    per-slot views and takes the dense plain path."""
+    h, hkv = q.shape[2], k_pool.shape[2]
+    npp = block_table.shape[1]
+    if _uses_kernel(backend) and h % hkv == 0:
+        rcfg = resolve(cfg)
+        if npp % rcfg.degree == 0:
+            return ops.paged_decode_attention(q, k_pool, v_pool, block_table,
+                                              pos, rcfg, window=window,
+                                              scale=scale)
+    return decode_attention(q, ref.gather_pages(k_pool, block_table),
+                            ref.gather_pages(v_pool, block_table), pos,
+                            window=window, scale=scale)
+
+
+def ffn(p, x, *, backend: str = "ref", cfg="auto"):
+    """SwiGLU FFN (`repro/models/layers.py:631`).  With a kernel backend the
+    gate, up and down products take the coarsened matmul kernel whenever
+    the rows tile as the reference requires (T % 128, d % 256, d_ff % 256);
+    otherwise they are the plain float32 product.  A ``cfg`` the kernel
+    cannot tile raises, as the reference's kernel builder does.  Each
+    product is cast back to x's dtype, as the reference."""
+    shp = x.shape
+    xt = x.reshape(-1, shp[-1])
+    t, d = xt.shape
+    w1, w3, w2 = (p[n].to(x.dtype) for n in ("w1", "w3", "w2"))
+    d_ff = w1.shape[1]
+    if _uses_kernel(backend) and not (t % 128 or d % 256 or d_ff % 256):
+        rcfg = resolve(cfg)
+
+        def mm(a, b):
+            return ops.matmul(a.contiguous(), b, rcfg).to(x.dtype)
+    else:
+        def mm(a, b):
+            return torch.matmul(a.float(), b.float()).to(x.dtype)
+    h = F.silu(mm(xt, w1)) * mm(xt, w3)
+    return mm(h, w2).reshape(shp)

@@ -1,0 +1,156 @@
+"""The decoder LM on the paged serving path: init, paged cache, chunked
+prefill and the decode step.
+
+Mirrors, from `repro/models/model.py`: `lm_init` (:105), `_embed` (:150),
+`_head` (:293), `lm_init_cache_paged` (:376), `lm_decode_step` (:408,
+paged) and `lm_prefill` (:586, paged).
+
+Differences from the reference, all of layout and not of arithmetic:
+
+* parameters are a plain dict of tensors with one dict per layer (the
+  reference stacks layers of one pattern position on a leading axis and
+  `lax.scan`s over it, which is what `_period` (:27) splits out); the scan
+  becomes a Python loop over ``cfg.layer_kinds()``;
+* the paged cache is ``{"layers": [{"k", "v"}, ...]}`` and `lm_prefill` /
+  `lm_decode_step` write its pools IN PLACE (the reference returns a new
+  cache); both still return the cache for symmetry;
+* only attention + dense-FFN stacks are ported (global and local layers);
+  recurrent, SSM, MoE and enc-dec models raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.is_encdec or cfg.n_experts or any(
+            k not in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds()):
+        raise NotImplementedError(f"{cfg.name}: only attention + dense-FFN "
+                                  f"decoders are ported yet")
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+def lm_init(cfg: ModelConfig, generator: torch.Generator | None = None,
+            device=None) -> dict:
+    """Random weights drawn with ``generator`` (seed it for repeatable
+    weights; it must live on ``device``) in the reference's distributions:
+    embedding N(0, 0.02^2), projections N(0, 1/d_in), RMSNorm scales 0.
+    Matmul weights and the embedding in bf16, norm scales float32.
+    Not meant to reproduce JAX's numbers (`interop.params_from_numpy`
+    carries those across).  Runs on ``cuda`` unless ``device="cpu"``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (w * std).to(torch.bfloat16)
+
+    def dense(d_in, d_out, std=None):
+        return normal((d_in, d_out), std or 1.0 / math.sqrt(d_in))
+
+    def norm(d):
+        return {"scale": torch.zeros(d, dtype=torch.float32, device=dev)}
+
+    d, hd, nq, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    params: dict = {"embed": normal((cfg.vocab_padded, d), 0.02),
+                    "final_norm": norm(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(d, cfg.vocab_padded)
+    layers = []
+    for _ in range(cfg.n_layers):
+        attn = {"wq": dense(d, nq * hd), "wk": dense(d, nkv * hd),
+                "wv": dense(d, nkv * hd), "wo": dense(nq * hd, d)}
+        if cfg.qkv_bias:
+            for n, w in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+                attn[n] = torch.zeros(w * hd, dtype=torch.bfloat16,
+                                      device=dev)
+        if cfg.qk_norm:
+            attn["qnorm"], attn["knorm"] = norm(hd), norm(hd)
+        layers.append({"ln1": norm(d), "attn": attn, "ln2": norm(d),
+                       "ffn": {"w1": dense(d, cfg.d_ff),
+                               "w3": dense(d, cfg.d_ff),
+                               "w2": dense(cfg.d_ff, d)}})
+    params["layers"] = layers
+    return params
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    return params["embed"][tokens.long()].to(compute_dtype(cfg))
+
+
+def _head(params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def _logits(params, x, cfg: ModelConfig):
+    """Final norm + head on (B, d) rows -> float32 (B, vocab)."""
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = (x @ _head(params, cfg).to(x.dtype)).float()
+    return logits[:, : cfg.vocab]                 # drop pad-vocab ids
+
+
+def lm_init_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
+                        dtype=torch.bfloat16, device=None) -> dict:
+    """Paged decode cache: one global K and V pool (num_pages, page_size,
+    Hkv, hd) per attention layer, all sharing ONE page-id space (page p is
+    row p of every layer's pool).  Slots reach their rows through their
+    block table.  Runs on ``cuda`` unless ``device="cpu"``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return {"layers": [B.attn_cache_init_paged(cfg, num_pages, page_size,
+                                               dtype, dev)
+                       for _ in range(cfg.n_layers)]}
+
+
+def lm_decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
+                   block_table, write_mask=None):
+    """tokens: (B,1) int; pos: (B,) int32; block_table: (B,npp) int32 ->
+    (logits (B, vocab) float32, cache).  Each layer writes its new K/V row
+    into the cache's pools in place; ``write_mask`` (B,) bool routes a
+    slot's writes to the NULL page."""
+    x = _embed(params, tokens, cfg)
+    for p, c, kind in zip(params["layers"], cache["layers"],
+                          cfg.layer_kinds()):
+        x, _ = B.attn_block_decode_paged(p, x, cfg, c, kind=kind, pos=pos,
+                                         block_table=block_table,
+                                         write_mask=write_mask)
+    return _logits(params, x[:, 0], cfg), cache
+
+
+def lm_prefill(params, tokens, cfg: ModelConfig, *, cache, block_table,
+               pos0=None):
+    """Chunked prefill: push a (B, T) token chunk through the stack, writing
+    attention K/V rows [pos0, pos0+T) through the block table into the
+    cache's pools in place.  Call repeatedly with increasing ``pos0`` to
+    ingest a long prompt in chunks; composes with `lm_decode_step`.
+
+    Write protection of slots not being prefilled comes from the table (the
+    caller nulls their rows).  The reference's ``mask`` argument guards
+    per-slot recurrent/SSM state, which attention-only stacks do not have,
+    so the port has none.  Returns (last-token logits (B, vocab) float32,
+    cache)."""
+    b, t = tokens.shape
+    if pos0 is None:
+        pos0 = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+    x = _embed(params, tokens, cfg)
+    for p, c, kind in zip(params["layers"], cache["layers"],
+                          cfg.layer_kinds()):
+        x, _ = B.attn_block_prefill_paged(p, x, cfg, c, kind=kind, pos0=pos0,
+                                          block_table=block_table)
+    return _logits(params, x[:, -1], cfg), cache
