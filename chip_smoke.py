@@ -9,25 +9,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build  — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print the build time.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving path's full-width shapes, for every coarsening label listed,
-   with the stated tolerance; then its time (CUDA events, L2 flushed before
+   its path's full-width shapes, for every coarsening label listed, with
+   the stated tolerance; then its time (CUDA events, L2 flushed before
    each launch, median), its plain version's time, one PyTorch library
    call's time and the least time the card could take (``bound_ms``).
+   The flash kernels are held row by row (see FLASH_ULPS), and
+   plain-version models of a lost kv block, a lost block of the causal
+   edge and a kv block lost by the last q block only show that the limits
+   catch each.
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
    are zeroed just before this run and read just after it.  Then the same
    trace through the plain paths, and one full-width `lm_decode_step` on a
    shared cache, kernel path against plain path.
-5. result — the kernels' JSON line, then the device JSON line, last.
+5. train  — full-width qwen3-0.6b training through `launch.train.train`
+   (float32 master weights from a seeded generator, bf16 compute, batch 4
+   x 1024 tokens, AdamW, remat none): 4 steps on the flash kernels with
+   the launch counts zeroed just before and read just after (28 of each
+   kernel per step), 4 steps on the plain attention from the same weights
+   and data, whose step-0 loss, step-0 gradient norm and step-1 loss the
+   kernel path must match within limits that three planted faults of the
+   kernel path (dQ zeroed, dK/dV zeroed, a V tile read as zeros) exceed,
+   and a resume check (2 steps, checkpoint, 2 resumed steps) that must
+   repeat the kernel path's losses exactly.
+6. result — the kernels' JSON line, then the device JSON line, last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -43,7 +60,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.coarsening import CoarseningConfig  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import matmul as mm_mod  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import (PagedEngine, Request, Scheduler,  # noqa: E402
                                State)
@@ -80,6 +99,40 @@ def mm_tol(k: int, ref_max: float) -> float:
     """f32 sums of exact bf16 products taken in another order: at most
     k * 2^-24 of the largest magnitude."""
     return k * 2.0 ** -24 * ref_max
+
+
+# flash kernels: the train phase's attention (qwen3-0.6b, batch 4 x 1024
+# tokens, causal, GQA 16/8, the config's bq = bkv = 128)
+FLASH = dict(b=4, h=16, hkv=8, s=1024, d=128, bq=128, bkv=128)
+FLASH_LABELS = ("base", "con2", "gap2")
+# The kernels read dO as bf16 (the plain versions are handed dO rounded the
+# same way) and round p and dS to bf16 where they enter a tensor-core
+# product (2^-9 relative each), summing in f32.  Those roundings move each
+# row of o and dQ (per q row) and of dK and dV (per kv row) by a fraction
+# of that row's own size, so every row must agree within 4 bf16 ulps of its
+# largest reference value.  dS = p (dP - delta) can cancel (in row 0 of dQ
+# it is 0), so dQ and dK also allow that difference's f32 error when dP's
+# D-term sums run in another order: 2^-16 (twice the 2^-17 linear bound
+# over 128 terms) of p (|dO| |V|^T + |delta|), carried through |K| or |Q|.
+# A plain-version model of a lost kv block, of a lost block of the causal
+# edge and of one kv block lost by the last q block only must exceed these
+# limits (checked on every run below).  m is an f32 row maximum of the
+# scores: 2^-16 of the largest; l an f32 row sum of exponentials (>= 1):
+# 2^-16 of itself.
+FLASH_ULPS = 4
+F32_SUMS = 2.0 ** -16
+
+
+def flash_tol(want: torch.Tensor, cond: torch.Tensor | None = None):
+    """Per-row limits: FLASH_ULPS bf16 ulps of each row's largest |want|,
+    plus the dS cancellation term ``cond`` where given."""
+    tol = FLASH_ULPS * 2.0 ** -8 * want.abs().amax(-1, keepdim=True)
+    return tol if cond is None else tol + cond
+
+
+def tol_ratio(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):
+    """Largest |got - want| / limit over all elements (<= 1 passes)."""
+    return ((got - want).abs() / tol).max().item()
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -264,6 +317,206 @@ def matmul_phase(gen: torch.Generator) -> dict:
             "library_ms": lib_ms}
 
 
+# -- phase 3: flash attention (forward, dQ, dK/dV) ---------------------------
+
+def flash_inputs(gen: torch.Generator):
+    b, h, hkv, s, d = (FLASH[k] for k in ("b", "h", "hkv", "s", "d"))
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, h, s, d, generator=gen, device="cuda")
+    return q, k, v, do
+
+
+def flash_planes(q, k, v, do, m, l, keep):
+    """The plain attention's (q, kv) planes in f32 from the residuals, with
+    the pairs outside ``keep`` dropped -> p, dP, K and V expanded over each
+    GQA group, scale."""
+    h, d = q.shape[1], q.shape[3]
+    g, scale = h // k.shape[1], 1.0 / math.sqrt(d)
+    ke = k.float().repeat_interleave(g, dim=1)
+    ve = v.float().repeat_interleave(g, dim=1)
+    s_ = torch.einsum("bhqd,bhkd->bhqk", q.float(), ke) * scale
+    p = torch.exp(torch.where(keep, s_ - m[..., None], -1e30)) / l[..., None]
+    del s_
+    return p, torch.einsum("bhqd,bhkd->bhqk", do, ve), ke, ve, scale
+
+
+def group_sum(x, hkv):
+    """(B, H, ...) per-q-head partials -> (B, Hkv, ...) sums per group."""
+    return x.reshape(x.shape[0], hkv, -1, *x.shape[2:]).sum(2)
+
+
+def causal_keep(n, device):
+    return torch.ones(n, n, dtype=torch.bool, device=device).tril()
+
+
+def flash_cond(q, k, v, do, m, l, delta):
+    """The f32 error allowance of dS = p (dP - delta) carried into dQ and
+    dK (see FLASH_ULPS) -> (cond_dq, cond_dk)."""
+    p, _, ke, ve, scale = flash_planes(q, k, v, do, m, l,
+                                       causal_keep(q.shape[2], q.device))
+    c = p * (torch.einsum("bhqd,bhkd->bhqk", do.abs(), ve.abs())
+             + delta.abs()[..., None])
+    del p
+    cq = torch.einsum("bhqk,bhkd->bhqd", c, ke.abs()) * scale
+    ck = torch.einsum("bhqk,bhqd->bhkd", c, q.float().abs()) * scale
+    return F32_SUMS * cq, F32_SUMS * group_sum(ck, k.shape[1])
+
+
+def flash_fault_model(q, k, v, do, m, l, delta, rows, cols):
+    """Plain-PyTorch model of kernels that lose the (rows x cols) block of
+    (q, kv) pairs: the forward renormalises over what it saw, the backward
+    drops those terms from its sums -> {o, dq, dk, dv}."""
+    keep = causal_keep(q.shape[2], q.device)
+    keep[rows, cols] = False
+    p, dp, ke, ve, scale = flash_planes(q, k, v, do, m, l, keep)
+    lf = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / torch.where(lf == 0, 1, lf), ve)
+    ds = p * (dp - delta[..., None])
+    del dp
+    hkv = k.shape[1]
+    return {"o": o, "dq": torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale,
+            "dk": group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+                            * scale, hkv),
+            "dv": group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do), hkv)}
+
+
+def flash_phase(gen: torch.Generator) -> list:
+    q, k, v, do = flash_inputs(gen)
+    geo = dict(bq=FLASH["bq"], bkv=FLASH["bkv"])
+    o_r, m_r, l_r = ref.flash_forward(q, k, v, residuals=True, **geo)
+    delta = (do * o_r).sum(-1)              # from the f32 cotangent, as ops
+    res = (do, m_r, l_r, delta)             # the kernels' inputs
+    res_p = (do.bfloat16().float(), m_r, l_r, delta)  # dO as they read it
+    dq_r = ref.flash_bwd_dq(q, k, v, *res_p, **geo)
+    dk_r, dv_r = ref.flash_bwd_dkv(q, k, v, *res_p, **geo)
+    want = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
+    cond_dq, cond_dk = flash_cond(q, k, v, *res_p)
+    tol = {"o": flash_tol(o_r), "dq": flash_tol(dq_r, cond_dq),
+           "dk": flash_tol(dk_r, cond_dk), "dv": flash_tol(dv_r)}
+    del cond_dq, cond_dk
+    tol_m = 2.0 ** -16 * m_r.abs().max().item()
+    tol_l = 2.0 ** -16 * l_r
+
+    # the limits must catch a lost kv block, a lost causal-edge block and a
+    # kv block lost by late rows only
+    blk, s = FLASH["bkv"], FLASH["s"]
+    faults = {"kv block 3 lost": (slice(None), slice(3 * blk, 4 * blk)),
+              "last causal-edge block lost": (slice(s - blk, s),
+                                              slice(s - blk, s)),
+              "kv block 0 lost by the last q block": (slice(s - blk, s),
+                                                      slice(0, blk))}
+    for what, (rows, cols) in faults.items():
+        bad = flash_fault_model(q, k, v, *res_p, rows, cols)
+        dev = {n: tol_ratio(bad[n], want[n], tol[n]) for n in want}
+        print(f"flash fault model, {what}: max deviation / limit "
+              + ", ".join(f"{n} {dev[n]:.2f}" for n in want), flush=True)
+        if not all(dev[n] > 1 for n in want):
+            raise SystemExit(f"flash limits would not catch: {what}")
+        del bad
+
+    worst = {"flash_forward": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
+    for label in FLASH_LABELS:
+        o, m, l = fa_mod.flash_forward(q, k, v, label, residuals=True, **geo)
+        o_nr = fa_mod.flash_forward(q, k, v, label, **geo)
+        dq = fa_mod.flash_bwd_dq(q, k, v, *res, label, **geo)
+        dk, dv = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **geo)
+        torch.cuda.synchronize()
+        got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+        ratio = {n: tol_ratio(got[n], want[n], tol[n]) for n in want}
+        ratio["o (no residuals)"] = tol_ratio(o_nr, o_r, tol["o"])
+        ratio["m"] = (m - m_r).abs().max().item() / tol_m
+        ratio["l"] = tol_ratio(l, l_r, tol_l)
+        err = {n: (got[n] - want[n]).abs().max().item() for n in want}
+        print(f"flash {label:4s}: max|kernel-plain| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in err.items())
+              + "; max error / limit "
+              + ", ".join(f"{n} {r:.3f}" for n, r in ratio.items()),
+              flush=True)
+        if not all(r <= 1 for r in ratio.values()):
+            raise SystemExit(f"flash kernels under {label} disagree with "
+                             f"their plain versions")
+        err_f = max((o - o_r).abs().max().item(),
+                    (o_nr - o_r).abs().max().item(),
+                    (m - m_r).abs().max().item(),
+                    (l - l_r).abs().max().item())
+        worst["flash_forward"] = max(worst["flash_forward"], err_f)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err["dq"])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err["dk"],
+                                     err["dv"])
+    del tol, want
+
+    # bound: each input read once, each output written once; the causal
+    # work covers the S(S+1)/2 live (q, kv) pairs of each head
+    b, h, hkv, d = (FLASH[k] for k in ("b", "h", "hkv", "d"))
+    pairs = b * h * s * (s + 1) // 2
+    qb, kvb = b * h * s * d * 2, 2 * b * hkv * s * d * 2   # bf16 q; k + v
+    f32_q, stat = b * h * s * d * 4, b * h * s * 4
+    work = {"flash_forward": (qb + kvb + f32_q + 2 * stat, 4 * d * pairs),
+            "flash_bwd_dq": (qb + kvb + f32_q + 3 * stat + f32_q,
+                             6 * d * pairs),
+            "flash_bwd_dkv": (qb + kvb + f32_q + 3 * stat
+                              + 2 * b * hkv * s * d * 4, 8 * d * pairs)}
+    calls = {
+        "flash_forward": (
+            lambda: fa_mod.flash_forward(q, k, v, residuals=True, **geo),
+            lambda: ref.flash_forward(q, k, v, residuals=True, **geo)),
+        "flash_bwd_dq": (
+            lambda: fa_mod.flash_bwd_dq(q, k, v, *res, **geo),
+            lambda: ref.flash_bwd_dq(q, k, v, *res, **geo)),
+        "flash_bwd_dkv": (
+            lambda: fa_mod.flash_bwd_dkv(q, k, v, *res, **geo),
+            lambda: ref.flash_bwd_dkv(q, k, v, *res, **geo))}
+    # yardsticks: SDPA's forward, and its backward (dQ, dK and dV together)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o_s = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    g_s = do.bfloat16()
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), g_s,
+                                                  retain_graph=True))
+    library = {"flash_forward": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    replaces = {"flash_forward": 196, "flash_bwd_dq": 291,
+                "flash_bwd_dkv": 421}
+    out = []
+    for name, (kernel, plain) in calls.items():
+        io_bytes, flops = work[name]
+        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5)
+        print(f"{name} timing (base, B={b} H={h} Hkv={hkv} S={s} D={d} "
+              f"causal): kernel {ms:.4f} ms | bound {bound_ms:.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) | plain "
+              f"{plain_ms:.4f} ms | sdpa {library[name]:.4f} ms"
+              + (" (backward: dQ, dK, dV together)"
+                 if name != "flash_forward" else ""), flush=True)
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:"
+                                f"{replaces[name]}",
+                    "max_abs_err": worst[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "library_ms": library[name]})
+    # the coarsened programs against base (the main path's label)
+    for label in FLASH_LABELS[1:]:
+        t = [time_ms(lambda: fa_mod.flash_forward(q, k, v, label,
+                                                  residuals=True, **geo)),
+             time_ms(lambda: fa_mod.flash_bwd_dq(q, k, v, *res, label,
+                                                 **geo)),
+             time_ms(lambda: fa_mod.flash_bwd_dkv(q, k, v, *res, label,
+                                                  **geo))]
+        print(f"flash {label} timing: forward {t[0]:.4f} ms | dQ "
+              f"{t[1]:.4f} ms | dK/dV {t[2]:.4f} ms (base: "
+              + " | ".join(f"{o['ms']:.4f}" for o in out) + ")", flush=True)
+    return out
+
+
 # -- phase 4: serve -----------------------------------------------------------
 
 SLOTS, CHUNK, PAGE, MAX_LEN, BLOCK = 8, 16, 16, 1024, 8
@@ -387,6 +640,147 @@ def serve_phase(name: str) -> dict:
     return counts
 
 
+# -- phase 5: train -----------------------------------------------------------
+
+TRAIN = dict(batch=4, seq=1024, lr=3e-4, remat="none", seed=SEED,
+             device="cuda", log_every=1)
+TRAIN_STEPS = 4
+# Kernel path against plain path, relative limits.  The paths differ only
+# in where attention rounds to bf16: per-token losses differ by about 2^-9
+# of themselves with random signs, so their mean over 4096 tokens by about
+# 2^-15.  Each limit lies above that, above the H100's reading, and below
+# what every planted fault moves the reading by (readings in PERF.md).
+TRAIN_LIMITS = {"step-0 loss": 2.0 ** -13, "step-0 grad norm": 2.0 ** -10,
+                "step-1 loss": 2.0 ** -12}
+# Planted faults of the kernel path, each of which must move every reading
+# it can reach past its limit: the backward faults leave the step-0 loss
+# as it is.
+TRAIN_FAULTS = {"dQ zeroed": ("step-0 grad norm", "step-1 loss"),
+                "dK/dV zeroed": ("step-0 grad norm", "step-1 loss"),
+                "V of kv block 3 read as zeros": tuple(TRAIN_LIMITS)}
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """Swap one flash wrapper for a faulty one while the block runs."""
+    def zeros(t):
+        return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+
+    fwd = fa_mod.flash_forward
+
+    def fwd_lost_v(q, k, v, *a, bkv, **kw):
+        v = v.clone()
+        v[:, :, 3 * bkv:4 * bkv] = 0
+        return fwd(q, k, v, *a, bkv=bkv, **kw)
+
+    name, faulty = {
+        "dQ zeroed": ("flash_bwd_dq", lambda q, *a, **kw: zeros(q)),
+        "dK/dV zeroed": ("flash_bwd_dkv",
+                         lambda q, k, *a, **kw: (zeros(k), zeros(k))),
+        "V of kv block 3 read as zeros": ("flash_forward", fwd_lost_v),
+    }[fault]
+    saved = getattr(fa_mod, name)
+    setattr(fa_mod, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(fa_mod, name, saved)
+
+
+def readings(losses, norms) -> dict:
+    return {"step-0 loss": losses[0], "step-0 grad norm": norms[0],
+            "step-1 loss": losses[1]}
+
+
+def rel_gaps(got: dict, want: dict) -> dict:
+    return {n: abs(got[n] - want[n]) / abs(want[n]) for n in want}
+
+
+def train_run(cfg, backend: str, **kw):
+    """-> (losses, grad norms, step seconds) of one `train` call."""
+    norms, secs = [], []
+
+    def on_step(step, loss, gn, dt):
+        norms.append(gn)
+        secs.append(dt)
+
+    losses, params = train(cfg, backend=backend, on_step=on_step,
+                           **{**TRAIN, **kw})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = [x for x in losses + norms if not math.isfinite(x)]
+    if bad:
+        raise SystemExit(f"train [{backend}]: non-finite loss or grad norm")
+    return losses, norms, secs
+
+
+def train_phase() -> dict:
+    cfg = get_config("qwen3-0.6b")
+    print(f"train: qwen3-0.6b full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), float32 master "
+          f"weights, {cfg.compute_dtype} compute, batch {TRAIN['batch']} x "
+          f"{TRAIN['seq']} tokens, AdamW lr {TRAIN['lr']}, remat "
+          f"{TRAIN['remat']}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa_mod.fwd_launches = fa_mod.dq_launches = fa_mod.dkv_launches = 0
+    losses, norms, secs = train_run(cfg, "cuda", steps=TRAIN_STEPS,
+                                    ckpt_dir=None)
+    counts = {"flash_forward": fa_mod.fwd_launches,
+              "flash_bwd_dq": fa_mod.dq_launches,
+              "flash_bwd_dkv": fa_mod.dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train [cuda]: losses {losses}, grad norms {norms}, step "
+          f"seconds {[round(x, 4) for x in secs]}, peak memory {peak:.2f} "
+          f"GiB; kernel launches {counts}", flush=True)
+    want = TRAIN_STEPS * cfg.n_layers
+    if any(n != want for n in counts.values()):
+        raise SystemExit(f"flash kernels launched {counts}, expected {want} "
+                         f"each ({TRAIN_STEPS} steps x {cfg.n_layers} layers)")
+
+    plain, p_norms, p_secs = train_run(cfg, "ref", steps=TRAIN_STEPS,
+                                       ckpt_dir=None)
+    want = readings(plain, p_norms)
+    gap = rel_gaps(readings(losses, norms), want)
+    print(f"train [ref]: losses {plain}, grad norms {p_norms}, step seconds "
+          f"{[round(x, 4) for x in p_secs]}; kernel - plain, relative: "
+          + ", ".join(f"{n} {gap[n]:.3e} (limit {TRAIN_LIMITS[n]:.3e})"
+                      for n in gap), flush=True)
+    moved = {}
+    for fault in TRAIN_FAULTS:
+        with planted(fault):
+            f_losses, f_norms, _ = train_run(cfg, "cuda", steps=2,
+                                             ckpt_dir=None)
+        moved[fault] = rel_gaps(readings(f_losses, f_norms), want)
+        print(f"train planted fault, {fault}: relative move "
+              + ", ".join(f"{n} {moved[fault][n]:.3e}" for n in want),
+              flush=True)
+    if not all(gap[n] <= TRAIN_LIMITS[n] for n in gap):
+        raise SystemExit("kernel path and plain path training disagree")
+    for fault, reach in TRAIN_FAULTS.items():
+        if not all(moved[fault][n] > TRAIN_LIMITS[n] for n in reach):
+            raise SystemExit(f"the train limits would not catch: {fault}")
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        first, _, _ = train_run(cfg, "cuda", steps=2, ckpt_dir=str(ckpt),
+                                save_every=1000)
+        rest, _, _ = train_run(cfg, "cuda", steps=TRAIN_STEPS,
+                               ckpt_dir=str(ckpt), save_every=1000)
+        print(f"train resume: 2 steps {first} + resumed {rest} against "
+              f"uninterrupted {losses} ({time.perf_counter() - t0:.1f}s "
+              f"with checkpoints)", flush=True)
+        if first + rest != losses:
+            raise SystemExit("resumed training does not repeat the "
+                             "uninterrupted losses exactly")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -405,8 +799,9 @@ def main() -> None:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [decode_phase(gen), matmul_phase(gen)]
+    kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
     counts = serve_phase(name)
+    counts.update(train_phase())
     for k in kernels:
         k["launches"] = counts[k["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "matmul")
+SOURCES = ("decode_attention", "matmul", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,11 @@ SIGNATURES = {
     },
     "matmul": {
         "coarsened_matmul_bf16": [_P] * 3 + [_I] * 6 + [_P],
+    },
+    "flash_attention": {
+        "flash_fwd_bf16": [_P] * 6 + [_I] * 12 + [_F, _P],
+        "flash_dq_bf16": [_P] * 8 + [_I] * 12 + [_F, _P],
+        "flash_dkv_bf16": [_P] * 9 + [_I] * 12 + [_F, _P],
     },
 }
 

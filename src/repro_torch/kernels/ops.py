@@ -1,20 +1,41 @@
 """Public wrappers of the ported kernel families (mirrors
-`repro.kernels.ops` for the ops the paged serving path runs).
+`repro.kernels.ops` for the ops the ported paths run).
 
 ``cfg`` is a CoarseningConfig or a label ("con2", "gap4+simd2", "base");
 ``"auto"`` resolves to the uncoarsened config until the tuner is ported.
 Tensors on the CPU take each kernel's plain PyTorch version; tensors on a
 CUDA device take the hand-written kernel (or the call raises).
+
+`flash_attention` is differentiable (a `torch.autograd.Function` whose
+backward runs the dQ and dK/dV kernels).  `matmul` and
+`paged_decode_attention` have no backward: their kernels fill outputs
+that autograd cannot see through, so both raise when grad mode is on and
+an input requires grad, instead of silently dropping the gradient.
 """
 from __future__ import annotations
 
-from repro_torch.core.coarsening import BASE, CoarseningConfig
+import torch
+
+from repro_torch.core.coarsening import BASE, CoarseningConfig, resolve
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import matmul as _matmul
+
+
+def _check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has
+    no backward."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           f"torch.no_grad() or on tensors that do not "
+                           f"require grad (the trainer's FFN takes the "
+                           f"plain product, ffn_backend='ref')")
 
 
 def matmul(a, b, cfg: CoarseningConfig | str = BASE):
     """(m,k) @ (k,n) -> (m,n) float32 through the coarsened blocked kernel."""
+    _check_no_grad("ops.matmul", a, b)
     return _matmul.coarsened_matmul(a, b, cfg)
 
 
@@ -27,6 +48,52 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     q: (B,1,H,D); pools: (P,page_size,Hkv,D); block_table: (B,npp) int32;
     pos: (B,) int32 -> (B,1,H,D).  The coarsening axis is the slot's
     logical-page axis."""
+    _check_no_grad("ops.paged_decode_attention", q, k_pool, v_pool)
     return _decode.paged_decode_attention(
         q, k_pool, v_pool, block_table, pos, cfg, window=window, scale=scale,
         k_scale=k_scale, v_scale=v_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`repro/kernels/ops.py:183-241` `_flash_vjp_fn`: the forward runs the
+    residual kernel and saves (q, k, v, o, m, l); the backward takes the
+    float32 cotangent, delta = sum(g * o) in float32 (:235), then the dQ
+    kernel with the forward's ``cfg`` and the dK/dV kernel with
+    ``bwd_cfg``, and casts each gradient to its input's type (:238)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, bwd_cfg, kw):
+        o, m, l = _flash.flash_forward(q, k, v, cfg, residuals=True, **kw)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.cfg, ctx.bwd_cfg, ctx.kw = cfg, bwd_cfg, kw
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, m, l = ctx.saved_tensors
+        g = g.float().contiguous()
+        delta = (g * o).sum(dim=-1)                    # (B,H,Sq) f32
+        dq = _flash.flash_bwd_dq(q, k, v, g, m, l, delta, ctx.cfg, **ctx.kw)
+        dk, dv = _flash.flash_bwd_dkv(q, k, v, g, m, l, delta, ctx.bwd_cfg,
+                                      **ctx.kw)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def flash_attention(q, k, v, cfg: CoarseningConfig | str = BASE, *,
+                    bwd_cfg: CoarseningConfig | str | None = None,
+                    bq: int = 128, bkv: int = 128, causal: bool = True,
+                    window: int | None = None, scale: float | None = None):
+    """Differentiable coarsened flash attention (`repro/kernels/ops.py:250`).
+    q: (B,H,Sq,D); k, v: (B,Hkv,Sk,D) -> (B,H,Sq,D) float32.
+
+    ``cfg`` coarsens the forward (and the dQ pass) on the q-row axis;
+    ``bwd_cfg`` (default "auto") coarsens the dK/dV pass on the kv-block
+    axis.  A call with grad off, or on inputs that need no gradient, runs
+    the forward kernel without residuals (:197-200)."""
+    cfg = resolve(cfg)
+    bwd_cfg = resolve("auto" if bwd_cfg is None else bwd_cfg)
+    kw = dict(bq=bq, bkv=bkv, causal=causal, window=window, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, cfg, bwd_cfg, kw)
+    return _flash.flash_forward(q, k, v, cfg, **kw)

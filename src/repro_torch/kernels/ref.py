@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the paged serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each computes its kernel's function in one untiled shot, as
 `repro.kernels.ref` does for the Pallas kernels: the CPU path of every
@@ -120,3 +120,109 @@ def combine(m, l, acc):
     out = (acc * w[..., None]).sum(dim=-2)
     l_tot = torch.where(l_tot == 0.0, torch.ones_like(l_tot), l_tot)
     return out / l_tot[..., None]
+
+
+# -- flash attention (`repro/kernels/flash_attention.py`) ----------------------
+
+def flash_check(sq, sk, *, degree, bq, bkv, causal, window, kv_axis=False):
+    """The Pallas kernels' geometry rule: the coarsened axis tiles by
+    ``degree`` blocks (q rows for the forward and dQ, kv rows for dK/dV),
+    the other by its block; causal / window need Sq == Sk."""
+    if kv_axis:
+        tiles = sk % (degree * bkv) == 0 and sq % bq == 0
+    else:
+        tiles = sq % (degree * bq) == 0 and sk % bkv == 0
+    if not tiles:
+        raise ValueError(f"seq not tileable: Sq {sq}, Sk {sk}, degree "
+                         f"{degree}, bq {bq}, bkv {bkv}")
+    if (causal or window is not None) and sq != sk:
+        raise ValueError(f"causal/window attention needs sq == sk (got {sq} "
+                         f"vs {sk})")
+
+
+def _flash_mask(sq, sk, causal, window, device):
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    return mask
+
+
+def _flash_scores(q, k, causal, window, scale):
+    """f32 scores (B,H,Sq,Sk) with GQA kv heads expanded, and the mask."""
+    h, d = q.shape[1], q.shape[3]
+    ke = k.float().repeat_interleave(h // k.shape[1], dim=1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), ke) * scale
+    return s, _flash_mask(q.shape[2], k.shape[2], causal, window, q.device)
+
+
+def flash_forward(q, k, v, *, degree=1, gapped=False, bq=128, bkv=128,
+                  causal=True, window=None, scale=None, residuals=False):
+    """The forward kernel's function (`flash_attention.py:119`
+    `make_kernel`) in one shot, f32.  q: (B,H,Sq,D); k, v: (B,Hkv,Sk,D) ->
+    o (B,H,Sq,D) f32, or (o, m, l) with the exact row max ``m`` and sum
+    ``l`` (B,H,Sq) of the online softmax.  Masked entries weigh exactly 0;
+    a fully masked row keeps m = NEG, l = 0 and o = 0.  The coarsening
+    (``degree``, ``gapped``) and the blocks only redistribute the work, so
+    they are checked for tiling and change no result."""
+    del gapped
+    flash_check(q.shape[2], k.shape[2], degree=degree, bq=bq, bkv=bkv,
+                causal=causal, window=window)
+    s, mask = _flash_scores(q, k, causal, window, scale)
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * mask
+    l = p.sum(dim=-1)
+    ve = v.float().repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, ve)
+    o = o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    return (o, m, l) if residuals else o
+
+
+def _flash_bwd_p_ds(q, k, v, do, m, l, delta, causal, window, scale):
+    """The backward kernels' recompute (:273-279): p from the saved (m, l)
+    (the double `where` keeps masked entries at 0 in fully masked rows),
+    dp = dO V^T, ds = p (dp - delta).  -> (p, ds) f32 (B,H,Sq,Sk)."""
+    s, mask = _flash_scores(q, k, causal, window, scale)
+    lg = torch.where(l == 0.0, torch.ones_like(l), l)
+    p = torch.exp(torch.where(mask, s - m[..., None],
+                              torch.full_like(s, NEG))) / lg[..., None]
+    ve = v.float().repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), ve)
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq(q, k, v, do, m, l, delta, *, degree=1, gapped=False,
+                 bq=128, bkv=128, causal=True, window=None, scale=None):
+    """The dQ kernel's function (:226 `make_bwd_dq_kernel`), f32:
+    dq = ds K scale.  do: (B,H,Sq,D); m, l, delta: (B,H,Sq) ->
+    (B,H,Sq,D) f32."""
+    del gapped
+    flash_check(q.shape[2], k.shape[2], degree=degree, bq=bq, bkv=bkv,
+                causal=causal, window=window)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    _, ds = _flash_bwd_p_ds(q, k, v, do, m, l, delta, causal, window, scale)
+    ke = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale
+
+
+def flash_bwd_dkv(q, k, v, do, m, l, delta, *, degree=1, gapped=False,
+                  bq=128, bkv=128, causal=True, window=None, scale=None):
+    """The dK/dV kernel's function (:315 `make_bwd_dkv_kernel`), f32:
+    per q-head dv = p^T dO and dk = ds^T Q scale, then summed over each
+    kv head's GQA group (:445-448) -> (dk, dv) (B,Hkv,Sk,D) f32."""
+    del gapped
+    flash_check(q.shape[2], k.shape[2], degree=degree, bq=bq, bkv=bkv,
+                causal=causal, window=window, kv_axis=True)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    p, ds = _flash_bwd_p_ds(q, k, v, do, m, l, delta, causal, window, scale)
+    b, h, _, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return (dk.reshape(b, hkv, h // hkv, sk, d).sum(dim=2),
+            dv.reshape(b, hkv, h // hkv, sk, d).sum(dim=2))

@@ -1,7 +1,9 @@
-"""The attention + FFN residual block on the paged serving path.
+"""The attention + FFN residual block: the whole-sequence block of training
+and the paged serving path's blocks.
 
 Mirrors, from `repro/models/blocks.py`:
 
+* `attn_block` (:44-69) — one block over a whole sequence (training);
 * `attn_cache_init_paged` (:185) — one global (P, page_size, Hkv, hd) K and
   V pool per layer;
 * `_paged_rows` (:202) — physical (page, row) of logical cache rows;
@@ -53,6 +55,29 @@ def _ffn_out(p, x, cfg: ModelConfig):
         raise NotImplementedError("MoE layers are not ported yet")
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + L.ffn(p["ffn"], h, backend=cfg.ffn_backend)
+
+
+def attn_block(p, x, cfg: ModelConfig, *, kind: str, pos,
+               pos_trivial: bool = False):
+    """One block over whole sequences.  x: (B,S,d); pos: (B,S) positions;
+    ``pos_trivial`` says row i IS position i, which lets the flash kernel's
+    causal mask stand in for the positions.  Attention dispatches through
+    `layers.flash_attention` with the config's attn_* knobs; the FFN is
+    dense (MoE raises).  Returns x only: the reference's second output is
+    the MoE auxiliary loss, 0 for dense blocks."""
+    window = cfg.window if kind == ATTN_LOCAL else None
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos)
+    o = L.flash_attention(
+        q, k, v, causal=True, window=window, q_pos=pos,
+        pos_trivial=pos_trivial,
+        global_stride=(cfg.attn_global_stride if kind == ATTN_LOCAL
+                       else None),
+        sparse=cfg.attn_sparse, sparse_cfg=cfg.attn_sparse_cfg,
+        backend=cfg.attn_backend, cfg=cfg.attn_cfg,
+        bwd_cfg=cfg.attn_bwd_cfg, bq=cfg.attn_bq, bkv=cfg.attn_bkv)
+    o = o.reshape(x.shape[0], x.shape[1], -1) @ p["attn"]["wo"].to(x.dtype)
+    return _ffn_out(p, x + o, cfg)
 
 
 def attn_block_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,

@@ -1,10 +1,13 @@
-"""Model building blocks on the paged serving path: RMSNorm, RoPE, the
-GQA q/k/v projection, chunked memory-efficient attention, decode attention
-(dense and paged dispatch) and the SwiGLU FFN.
+"""Model building blocks: RMSNorm, RoPE, the GQA q/k/v projection, chunked
+memory-efficient attention, the training/prefill flash-attention dispatch,
+decode attention (dense and paged dispatch) and the SwiGLU FFN.
 
 Mirrors `repro.models.layers` function for function, on PyTorch tensors.
 ``backend`` values: ``"ref"`` takes the plain path, ``"cuda"`` the port's
 hand-written kernel (on CPU tensors, that kernel's plain version).
+Weights are cast to the activations' dtype where they are used, as the
+reference's ``asdense(w, x.dtype)`` does, so float32 master weights train
+with bf16 compute.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.coarsening import resolve
 from repro_torch.kernels import ops, ref
@@ -79,13 +83,18 @@ def qkv_project(p, x, cfg: ModelConfig, pos):
 
 
 def mea_attention(q, k, v, *, causal=True, window=None, q_pos=None,
-                  kv_chunk=512, scale=None):
+                  k_len=None, kv_chunk=512, scale=None):
     """Chunked (flash-style) attention, `repro/models/layers.py:185`.
 
     q: (B,Sq,H,D); k, v: (B,Sk,Hkv,D).  q_pos: (B,Sq) global row positions
-    (default arange).  K/V stay in their storage dtype; q is scaled in its own dtype; scores
-    and the running (m, l, acc) are float32, and the probabilities are cast
-    to V's dtype before the PV product — the reference's rounding points.
+    (default arange); k_len: valid kv length, an int or (B,) tensor (rows
+    at and past it are masked).  K/V stay in their storage dtype; q is
+    scaled in its own dtype; scores and the running (m, l, acc) are
+    float32, and the probabilities are cast to V's dtype before the PV
+    product — the reference's rounding points.  Under autograd each kv
+    chunk is checkpointed, as the reference's ``jax.checkpoint`` on
+    ``kv_step`` (:237-243): only the (m, l, acc) carry is saved and the
+    chunk's scores are recomputed in the backward.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -98,15 +107,15 @@ def mea_attention(q, k, v, *, causal=True, window=None, q_pos=None,
     qg = (q.reshape(b, sq, hkv, g, d) * torch.tensor(scale, dtype=q.dtype)
           ).float()
     kpos = torch.arange(sk, device=dev)
-    m = torch.full((b, sq, hkv, g), NEG, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
-    for k0 in range(0, sk, kv_chunk):
-        kb, vb = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
-        kp = kpos[k0:k0 + kv_chunk]
+    valid = torch.ones((b, sk), dtype=torch.bool, device=dev)
+    if k_len is not None:
+        kl = torch.as_tensor(k_len, device=dev)
+        valid = kpos[None, :] < (kl[:, None] if kl.dim() else kl)
+        valid = valid.expand(b, sk)
+
+    def kv_step(m, l, acc, kb, vb, kp, vk):
         s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb.float())
-        mask = torch.ones((b, sq, kp.shape[0]), dtype=torch.bool,
-                          device=dev)                           # (B,q,k)
+        mask = vk[:, None, :]                                   # (B,1,k)
         if causal:
             mask = mask & (kp[None, None, :] <= q_pos[:, :, None])
         if window is not None:
@@ -116,13 +125,79 @@ def mea_attention(q, k, v, *, causal=True, window=None, q_pos=None,
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None]) * mask
         alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        l_new = l * alpha + p.sum(dim=-1)
+        acc_new = acc * alpha[..., None] + torch.einsum(
             "bqhgk,bkhd->bqhgd", p.to(vb.dtype).float(), vb.float())
-        m = m_new
+        return m_new, l_new, acc_new
+
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    m = torch.full((b, sq, hkv, g), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, kv_chunk):
+        args = (m, l, acc, k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk],
+                kpos[k0:k0 + kv_chunk], valid[:, k0:k0 + kv_chunk])
+        m, l, acc = (checkpoint(kv_step, *args, use_reentrant=False)
+                     if grad else kv_step(*args))
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / l[..., None]).reshape(b, sq, h, d)
     return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
+                    k_len=None, pos_trivial=False, scale=None,
+                    backend: str = "ref", cfg="auto", bwd_cfg="auto",
+                    bq: int = 128, bkv: int = 128, global_stride=None,
+                    sparse: str = "auto", sparse_cfg="auto"):
+    """Training/prefill attention dispatch (`repro/models/layers.py:282`).
+    q: (B,Sq,H,D); k, v: (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's dtype.
+
+    ``backend="cuda"`` takes the differentiable flash kernels
+    (`ops.flash_attention`) under the reference's eligibility rule: no
+    ``k_len``; ``h % hkv == 0``; Sq and Sk tile by bq / bkv (each capped at
+    the sequence) and by the resolved degrees; causal or window masking
+    needs Sq == Sk and ``pos_trivial`` (q row i IS global row i).
+    Everything else takes `mea_attention`, as in the reference.
+
+    Not ported: the block-sparse branch (:323-346, windowed layers with
+    ``sparse != "off"``) and the global-stride branch (:348-360).  Where
+    the reference would take either, this raises NotImplementedError; it
+    never answers with the dense kernel instead.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    kernel = _uses_kernel(backend)
+    if (kernel and sparse != "off" and k_len is None and causal
+            and window is not None and sq == sk and pos_trivial
+            and h % hkv == 0 and sq % min(bq, sq) == 0
+            and sk % min(bkv, sk) == 0):
+        raise NotImplementedError(
+            "block-sparse flash attention (a window with sparse="
+            f"{sparse!r}) is not ported yet; pass sparse='off' for the "
+            "dense kernel")
+    if (global_stride and window is not None and k_len is None
+            and sq == sk and (pos_trivial or q_pos is None)):
+        raise NotImplementedError("global-stride attention columns are "
+                                  "not ported yet")
+    if kernel and k_len is None:
+        blk_q, blk_k = min(bq, sq), min(bkv, sk)
+        ok = h % hkv == 0 and sq % blk_q == 0 and sk % blk_k == 0
+        if causal or window is not None:
+            ok = ok and sq == sk and pos_trivial
+        if ok:
+            rcfg, rbwd = resolve(cfg), resolve(bwd_cfg)
+            if sq % (blk_q * rcfg.degree) == 0 \
+                    and sk % (blk_k * rbwd.degree) == 0:
+                o = ops.flash_attention(
+                    q.transpose(1, 2).contiguous(),
+                    k.transpose(1, 2).contiguous(),
+                    v.transpose(1, 2).contiguous(), rcfg, bwd_cfg=rbwd,
+                    bq=blk_q, bkv=blk_k, causal=causal, window=window,
+                    scale=scale)
+                return o.transpose(1, 2).to(q.dtype)
+    return mea_attention(q, k, v, causal=causal, window=window, q_pos=q_pos,
+                         k_len=k_len, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):

@@ -1,9 +1,10 @@
-"""The decoder LM on the paged serving path: init, paged cache, chunked
-prefill and the decode step.
+"""The decoder LM: init, the whole-sequence forward and the chunked loss of
+training, and the paged cache, chunked prefill and decode step of serving.
 
 Mirrors, from `repro/models/model.py`: `lm_init` (:105), `_embed` (:150),
-`_head` (:293), `lm_init_cache_paged` (:376), `lm_decode_step` (:408,
-paged) and `lm_prefill` (:586, paged).
+`_run_stack` (:158-200), `lm_apply` (:202-230), `_head` (:293),
+`lm_loss` (:299-343), `lm_init_cache_paged` (:376), `lm_decode_step`
+(:408, paged) and `lm_prefill` (:586, paged).
 
 Differences from the reference, all of layout and not of arithmetic:
 
@@ -19,9 +20,11 @@ Differences from the reference, all of layout and not of arithmetic:
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks as B
@@ -30,6 +33,8 @@ from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+LOSS_CHUNK = 512
+REMATS = ("none", "full")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -44,20 +49,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def lm_init(cfg: ModelConfig, generator: torch.Generator | None = None,
-            device=None) -> dict:
+            device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random weights drawn with ``generator`` (seed it for repeatable
     weights; it must live on ``device``) in the reference's distributions:
     embedding N(0, 0.02^2), projections N(0, 1/d_in), RMSNorm scales 0.
-    Matmul weights and the embedding in bf16, norm scales float32.
-    Not meant to reproduce JAX's numbers (`interop.params_from_numpy`
-    carries those across).  Runs on ``cuda`` unless ``device="cpu"``."""
+    Matmul weights and the embedding in ``dtype`` (bf16 for serving;
+    float32 master weights for training, the reference's layout,
+    `layers.py:78-85`), norm scales float32.  Not meant to reproduce JAX's
+    numbers (`interop.params_from_numpy` carries those across).  Runs on
+    ``cuda`` unless ``device="cpu"``."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
     def normal(shape, std):
         w = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (w * std).to(torch.bfloat16)
+        return (w * std).to(dtype)
 
     def dense(d_in, d_out, std=None):
         return normal((d_in, d_out), std or 1.0 / math.sqrt(d_in))
@@ -76,8 +83,7 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator | None = None,
                 "wv": dense(d, nkv * hd), "wo": dense(nq * hd, d)}
         if cfg.qkv_bias:
             for n, w in (("bq", nq), ("bk", nkv), ("bv", nkv)):
-                attn[n] = torch.zeros(w * hd, dtype=torch.bfloat16,
-                                      device=dev)
+                attn[n] = torch.zeros(w * hd, dtype=dtype, device=dev)
         if cfg.qk_norm:
             attn["qnorm"], attn["knorm"] = norm(hd), norm(hd)
         layers.append({"ln1": norm(d), "attn": attn, "ln2": norm(d),
@@ -103,6 +109,84 @@ def _logits(params, x, cfg: ModelConfig):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (x @ _head(params, cfg).to(x.dtype)).float()
     return logits[:, : cfg.vocab]                 # drop pad-vocab ids
+
+
+def _run_stack(params, x, cfg: ModelConfig, *, pos, remat: str = "none",
+               pos_trivial: bool = False):
+    """The layers in order (the reference's ``lax.scan`` over periods is a
+    Python loop).  ``remat="full"`` checkpoints each layer, as
+    ``jax.checkpoint(period_body)`` does for a period of one layer;
+    ``"dots"`` (save the products) is not ported."""
+    if remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported yet")
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        block = functools.partial(B.attn_block, cfg=cfg, kind=kind, pos=pos,
+                                  pos_trivial=pos_trivial)
+        x = (checkpoint(block, p, x, use_reentrant=False)
+             if remat == "full" else block(p, x))
+    return x
+
+
+def lm_apply(params, batch, cfg: ModelConfig, *, remat: str = "none"):
+    """batch {"tokens" (B,S) int[, "positions" (B,S)]} -> final hidden
+    states (B,S,d) in the compute dtype.  Without explicit positions, row i
+    is position i (``pos_trivial``), which is what lets the flash kernel's
+    causal mask stand in for the positions; batches that carry positions
+    keep the `mea_attention` path.  The reference's MoE auxiliary loss is
+    0 for the dense stacks ported here and is not returned."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    pos = batch.get("positions")
+    pos_trivial = pos is None
+    if pos is None:
+        pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = _embed(params, tokens, cfg)
+    x = _run_stack(params, x, cfg, pos=pos, remat=remat,
+                   pos_trivial=pos_trivial)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _ce_chunk(h, head, labels, mask, vmask):
+    """Summed cross-entropy and token count of one (B, chunk) slice: pad
+    vocab ids masked to -1e30, logits float32."""
+    logits = (h @ head.to(h.dtype)).float()
+    logits = torch.where(vmask, logits, torch.full_like(logits, -1e30))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: str = "none"):
+    """Chunked cross-entropy over ``LOSS_CHUNK`` positions at a time ->
+    (loss, metrics).  Under autograd each chunk is checkpointed, as the
+    reference's ``jax.checkpoint(ce_chunk)``: its (B, chunk, vocab) logits
+    are recomputed in the backward instead of being kept (un-chunked, they
+    would be B*S*vocab*4 bytes)."""
+    hidden = lm_apply(params, batch, cfg, remat=remat)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    b, s, _ = hidden.shape
+    head = _head(params, cfg)
+    chunk = min(LOSS_CHUNK, s)
+    n = s // chunk if s % chunk == 0 else 1
+    chunk = s // n
+    vmask = torch.arange(head.shape[-1], device=hidden.device) < cfg.vocab
+    grad = torch.is_grad_enabled() and hidden.requires_grad
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (hidden[:, sl], head, labels[:, sl], mask[:, sl].float(),
+                vmask)
+        t, c = (checkpoint(_ce_chunk, *args, use_reentrant=False) if grad
+                else _ce_chunk(*args))
+        tot, cnt = tot + t, cnt + c
+    ce = tot / torch.clamp(cnt, min=1.0)
+    return ce, {"ce": ce, "tokens": cnt}
 
 
 def lm_init_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
