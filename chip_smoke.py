@@ -16,7 +16,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    The flash kernels are held row by row (see FLASH_ULPS), and
    plain-version models of a lost kv block, a lost block of the causal
    edge and a kv block lost by the last q block only show that the limits
-   catch each.
+   catch each.  The qwen2-moe-a2.7b kernels: the int8-pool paged decode,
+   the grouped-expert MoE FFN (capacities 128 and 8), its dequant-fused
+   twin (int8 and int4) and the dequant-fused matmul (int8 and int4), each
+   error printed as a ratio of its limit beside a fault model (a lost page
+   of V scales, a lost expert, a lost scale, swapped nibbles) that must
+   exceed it.
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
@@ -33,7 +38,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel path (dQ zeroed, dK/dV zeroed, a V tile read as zeros) exceed,
    and a resume check (2 steps, checkpoint, 2 resumed steps) that must
    repeat the kernel path's losses exactly.
-6. result — the kernels' JSON line, then the device JSON line, last.
+6. serve MoE — full-width qwen2-moe-a2.7b (24 layers, 64 padded experts,
+   random bf16 weights from a seeded generator) through `Scheduler` over
+   `PagedEngine`: 8 requests of 64-255 prompt tokens and 32 generated
+   tokens, a pool of 60% of the pages they hold at completion.  Twice on
+   the kernel path, counts zeroed before and read after each run: bf16
+   weights and KV (MoE kernel, paged decode, shared-expert matmul), then
+   int8 weights and int8 KV pools (their dequant-fused and int8 twins);
+   24 MoE launches per prefill chunk and decode step, 24 decode launches
+   per decode step and 72 shared-FFN launches per full prefill chunk are
+   checked.  One full-width `lm_decode_step`, kernel path against plain
+   path.
+7. result — the card's name and power limit again, the kernels' JSON line
+   (launches summed over the main-path runs of phases 4-6), then the
+   device JSON line, last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -62,8 +80,13 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import matmul as mm_mod  # noqa: E402
+from repro_torch.kernels import moe_ffn as moe_mod  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models import blocks as B  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.quant import (dequantize, quantize, quantize_kv,  # noqa: E402
+                               tree_nbytes)
 from repro_torch.serve import (PagedEngine, Request, Scheduler,  # noqa: E402
                                State)
 from repro_torch.serve.paging import pages_needed  # noqa: E402
@@ -137,6 +160,14 @@ def tol_ratio(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):
 
 # -- phase 1 ------------------------------------------------------------------
 
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         print("no CUDA device: the chip smoke test needs one", flush=True)
@@ -144,13 +175,9 @@ def device_phase() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {name} (count {torch.cuda.device_count()}), torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
-    print(smi)
+    print(smi_line())
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     return name
@@ -517,6 +544,383 @@ def flash_phase(gen: torch.Generator) -> list:
     return out
 
 
+# -- phase 3: the MoE kernels, the dequant-fused matmul, int8-pool decode ----
+
+# qwen2-moe-a2.7b (hf:Qwen/Qwen1.5-MoE-A2.7B): 60 routed experts padded to 64,
+# top-4, expert width 1408, d 2048; its shared experts are one SwiGLU of
+# width 4 x 1408 = 5632.  Capacities as the serve phase gives them: 128 in a
+# prefill chunk (8 slots x 16 tokens), 8 in a decode step (max(4, min(8, 16))).
+MOE = dict(e=64, n_routed=60, top_k=4, d=2048, f=1408)
+MOE_CAPS = (128, 8)
+MOE_LABELS = ("base", "con2", "gap2")
+# Row 9 rounds h to bf16 once, as its plain version does, but its f32 sums
+# run in another order, so a rounding of h can land one bf16 ulp (2^-7 of
+# |h| at most) apart: per element |kernel - plain| <= 2^-7 * comb *
+# (|h| @ |w2|) covers every h term landing an ulp apart; the f32 sums' own
+# order error (F * 2^-24 of the same product) is far below it.
+MOE_EPS = 2.0 ** -7
+# Row 11 keeps h in f32 (hi + lo bf16 in the second product, 2^-17 of h),
+# forms exact products and applies the scales after them, and sums in f32:
+# 2^-12 of the same magnitude product is far above those errors (f32 sums
+# over 2048 and 1408 terms with random signs) and far below a lost scale
+# group.
+QMOE_EPS = 2.0 ** -12
+# Row 10: an f32 dot of K exact products in any order is within K * 2^-24
+# of |a| @ |w|; the scale applied after the sum adds one rounding.
+QMM_MAIN = ((128, 2048, 5632), (128, 2048, 5632), (128, 5632, 2048))
+QMM_CASES = [((128, 2048, 5632), "base"), ((128, 5632, 2048), "base"),
+             ((256, 2048, 5632), "con2"), ((256, 2048, 5632), "gap2")]
+# int8-pool decode at qwen2-moe's attention (16/16 heads, hd 128), 8 slots,
+# max_len 512 at page size 16; the limit is the bf16 kernel's (DEC_ULPS)
+DEC8 = dict(b=8, h=16, hkv=16, d=128, ps=16, npp=32)
+
+
+def limit_ratio(got, want, tol) -> float:
+    """Largest |got - want| / tol; where tol is 0 (a row whose combine
+    weight is 0) the two must be equal."""
+    diff = (got - want).abs()
+    r = torch.where(tol > 0, diff / tol.clamp_min(1e-30),
+                    torch.where(diff > 0, math.inf, 0.0))
+    return r.max().item()
+
+
+def bound(io_bytes: float, flops: float):
+    t_b, t_o = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def moe_dispatch(gen, t: int, cap: int):
+    """The MoE layer's dispatch of t random tokens (`layers.moe`): softmax
+    top-4 over the 60 routed experts, renormalised, top-``cap`` tokens per
+    expert -> xe (64, cap, d) bf16 with dead rows zeroed, comb (64, cap)."""
+    e, d = MOE["e"], MOE["d"]
+    xt = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    logits = torch.randn(t, e, generator=gen, device="cuda") * 2.0
+    logits[:, MOE["n_routed"]:] = -1e30
+    w, idx = torch.topk(torch.softmax(logits, -1), MOE["top_k"], dim=-1)
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    tokw = torch.einsum("tke,tk->et",
+                        torch.nn.functional.one_hot(idx, e).float(), w)
+    topw, topi = torch.topk(tokw, cap, dim=-1)
+    live = topw > 0
+    xe = xt[topi.reshape(-1)].reshape(e, cap, d) * live[..., None]
+    return xe.bfloat16().contiguous(), (topw * live).contiguous()
+
+
+def moe_weights(gen):
+    e, d, f = MOE["e"], MOE["d"], MOE["f"]
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                ).bfloat16()
+    return (normal((e, d, f), d ** -0.5), normal((e, d, f), d ** -0.5),
+            normal((e, f, d), f ** -0.5))
+
+
+def moe_mag(xe, w1, w3, w2, comb, round_h: bool):
+    """comb * (|h| @ |w2|), the scale of each output's error; weights are
+    bf16 panes or dequantized f32 panes."""
+    x = xe.float()
+    h = torch.nn.functional.silu(x @ w1.float()) * (x @ w3.float())
+    if round_h:
+        h = h.bfloat16().float()
+    return (h.abs() @ w2.float().abs()) * comb[..., None]
+
+
+def moe_work(xe, comb, wbytes_per_expert: float):
+    """Bytes and operations the function needs on these inputs: the live
+    experts' weights and the live rows of x read once, comb read and the
+    whole f32 y written once; 6 d F per live row."""
+    e, c, d = xe.shape
+    live_e = int((comb > 0).any(dim=1).sum().item())
+    rows = int((comb > 0).sum().item())
+    io = live_e * wbytes_per_expert + rows * d * 2 + e * c * 4 \
+        + e * c * d * 4
+    return io, 6 * rows * d * MOE["f"], live_e, rows
+
+
+def bmm_chain(xe, w1, w3, w2, comb):
+    """Yardstick: cuBLAS batched bf16 products of the same chain."""
+    h = torch.nn.functional.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+    return torch.bmm(h, w2) * comb[..., None]
+
+
+def moe_phase(gen) -> dict:
+    """Row 9 (`moe_ffn.py:90`): every label at both capacities, a lost
+    expert as its fault model, then times at capacity 128."""
+    w1, w3, w2 = moe_weights(gen)
+    worst, timing = 0.0, {}
+    for cap in MOE_CAPS:
+        xe, comb = moe_dispatch(gen, cap, cap)
+        want = ref.moe_ffn(xe, w1, w3, w2, comb)
+        tol = MOE_EPS * moe_mag(xe, w1, w3, w2, comb, round_h=True)
+        e0 = int((comb > 0).any(dim=1).nonzero()[0].item())
+        bad = want.clone()
+        bad[e0] = 0
+        fault = limit_ratio(bad, want, tol)
+        for label in MOE_LABELS:
+            got = ops.moe_ffn(xe, w1, w3, w2, comb, label)
+            torch.cuda.synchronize()
+            r = limit_ratio(got, want, tol)
+            err = (got - want).abs().max().item()
+            print(f"moe_ffn C={cap} {label}: max|kernel-plain| {err:.3e}; "
+                  f"max error / limit {r:.4f}; fault model (expert {e0} "
+                  f"lost) / limit {fault:.1f}", flush=True)
+            if not r <= 1:
+                raise SystemExit(f"moe_ffn kernel {label} at C={cap} "
+                                 f"disagrees with its plain version")
+            worst = max(worst, err)
+        if not fault > 1:
+            raise SystemExit("the moe_ffn limit would not catch a lost "
+                             "expert")
+        io, flops, live_e, rows = moe_work(xe, comb,
+                                           3 * MOE["d"] * MOE["f"] * 2)
+        bms, by = bound(io, flops)
+        t = {"ms": time_ms(lambda: ops.moe_ffn(xe, w1, w3, w2, comb)),
+             "plain_ms": time_ms(lambda: ref.moe_ffn(xe, w1, w3, w2, comb),
+                                 reps=5),
+             "library_ms": time_ms(lambda: bmm_chain(xe, w1, w3, w2, comb)),
+             "bound_ms": bms, "bound_by": by}
+        timing[cap] = t
+        print(f"moe_ffn timing (E=64 C={cap} d=2048 F=1408, base, "
+              f"{live_e} live experts, {rows} live rows): kernel "
+              f"{t['ms']:.4f} ms | bound {bms:.4f} ms ({by}) | plain "
+              f"{t['plain_ms']:.4f} ms | torch.bmm chain "
+              f"{t['library_ms']:.4f} ms", flush=True)
+        del xe, comb, want, tol, bad
+    return {"name": "moe_ffn", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+            "replaces": "src/repro/kernels/moe_ffn.py:90",
+            "max_abs_err": worst, **timing[MOE_CAPS[0]]}
+
+
+def quant_moe_phase(gen) -> dict:
+    """Row 11 (`moe_ffn.py:190`): int8 and int4, every label at both
+    capacities; a lost scale (int8: one column of w2's, int4: one group
+    row of w2's) as the fault model; times at capacity 128."""
+    w1, w3, w2 = moe_weights(gen)
+    worst, timing = 0.0, {}
+    for bits in (8, 4):
+        qs = [quantize(w, f"int{bits}") for w in (w1, w3, w2)]
+        dq = [dequantize(q) for q in qs]
+        for cap in MOE_CAPS:
+            xe, comb = moe_dispatch(gen, cap, cap)
+            want = ref.quant_moe_ffn(xe, *qs, comb)
+            tol = QMOE_EPS * moe_mag(xe, *dq, comb, round_h=False)
+            e0 = int((comb > 0).any(dim=1).nonzero()[0].item())
+            sc = qs[2].scale.clone()
+            if bits == 8:
+                sc[e0, 0, 0], what = 0.0, "column 0's scale"
+            else:
+                sc[e0, 0], what = 0.0, "scale group 0"
+            bad = ref.quant_moe_ffn(xe, qs[0], qs[1], dataclasses.replace(
+                qs[2], scale=sc), comb)
+            fault = limit_ratio(bad, want, tol)
+            for label in MOE_LABELS:
+                got = ops.quant_moe_ffn(xe, *qs, comb, label)
+                torch.cuda.synchronize()
+                r = limit_ratio(got, want, tol)
+                err = (got - want).abs().max().item()
+                print(f"quant_moe_ffn int{bits} C={cap} {label}: "
+                      f"max|kernel-plain| {err:.3e}; max error / limit "
+                      f"{r:.4f}; fault model (w2 {what} of expert {e0} "
+                      f"lost) / limit {fault:.1f}", flush=True)
+                if not r <= 1:
+                    raise SystemExit(f"quant_moe_ffn int{bits} {label} at "
+                                     f"C={cap} disagrees with its plain "
+                                     f"version")
+                worst = max(worst, err)
+            if not fault > 1:
+                raise SystemExit("the quant_moe_ffn limit would not catch a "
+                                 "lost scale")
+            wb = sum(q.nbytes for q in qs) / MOE["e"]
+            io, flops, live_e, rows = moe_work(xe, comb, wb)
+            bms, by = bound(io, flops)
+            dqb = [d.bfloat16() for d in dq]
+            t = {"ms": time_ms(lambda: ops.quant_moe_ffn(xe, *qs, comb)),
+                 "plain_ms": time_ms(
+                     lambda: ref.quant_moe_ffn(xe, *qs, comb), reps=5),
+                 "library_ms": time_ms(lambda: bmm_chain(xe, *dqb, comb)),
+                 "bound_ms": bms, "bound_by": by}
+            timing[(bits, cap)] = t
+            print(f"quant_moe_ffn int{bits} timing (C={cap}, base, {live_e} "
+                  f"live experts): kernel {t['ms']:.4f} ms | bound "
+                  f"{bms:.4f} ms ({by}) | plain {t['plain_ms']:.4f} ms | "
+                  f"torch.bmm chain on dequantized bf16 panes "
+                  f"{t['library_ms']:.4f} ms", flush=True)
+            del xe, comb, want, tol, bad, dqb
+        del qs, dq
+    return {"name": "quant_moe_ffn", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+            "replaces": "src/repro/kernels/moe_ffn.py:190",
+            "max_abs_err": worst, **timing[(8, MOE_CAPS[0])]}
+
+
+def swapped_nibbles(qw):
+    """Fault model: the packed int4 weight with its two nibbles swapped."""
+    q = (qw.q >> 4) | ((qw.q & 0xF) << 4)
+    return dataclasses.replace(qw, q=q)
+
+
+def quant_matmul_phase(gen) -> dict:
+    """Row 10 (`matmul.py:142`): int8 and int4 at the shared-expert FFN's
+    prefill products (and con2 / gap2 at M = 256); swapped nibbles (int4)
+    and a lost column scale (int8) as fault models; times of the three
+    products of one prefill chunk."""
+    worst = 0.0
+    for bits in (8, 4):
+        for (m, k, n), label in QMM_CASES:
+            a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+            qw = quantize(w, f"int{bits}")
+            want = ref.quant_matmul(a, qw)
+            tol = k * 2.0 ** -24 * (a.float().abs() @ dequantize(qw).abs())
+            if bits == 4:
+                bad_w, what = swapped_nibbles(qw), "swapped nibbles"
+            else:
+                sc = qw.scale.clone()
+                sc[0, 0] = 0.0
+                bad_w, what = dataclasses.replace(qw, scale=sc), \
+                    "column 0's scale lost"
+            fault = limit_ratio(ref.quant_matmul(a, bad_w), want, tol)
+            got = ops.quant_matmul(a, qw, label)
+            torch.cuda.synchronize()
+            r = limit_ratio(got, want, tol)
+            err = (got - want).abs().max().item()
+            print(f"quant_matmul int{bits} ({m}x{k})@({k}x{n}) {label}: "
+                  f"max|kernel-plain| {err:.3e}; max error / limit {r:.4f}; "
+                  f"fault model ({what}) / limit {fault:.1f}", flush=True)
+            if not r <= 1:
+                raise SystemExit(f"quant_matmul int{bits} {label} disagrees "
+                                 f"with its plain version")
+            if not fault > 1:
+                raise SystemExit(f"the quant_matmul limit would not catch "
+                                 f"{what}")
+            worst = max(worst, err)
+    timing = {}
+    for bits in (8, 4):
+        prods = []
+        for m, k, n in QMM_MAIN:
+            a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            qw = quantize(torch.randn(k, n, generator=gen, device="cuda")
+                          / math.sqrt(k), f"int{bits}")
+            prods.append((a, qw, dequantize(qw).bfloat16()))
+        io = sum(2 * m * k + qw.nbytes + 4 * m * n
+                 for (m, k, n), (_, qw, _) in zip(QMM_MAIN, prods))
+        bms, by = bound(io, sum(2 * m * n * k for m, k, n in QMM_MAIN))
+        t = {"ms": time_ms(lambda: [ops.quant_matmul(a, qw)
+                                    for a, qw, _ in prods]),
+             "plain_ms": time_ms(lambda: [ref.quant_matmul(a, qw)
+                                          for a, qw, _ in prods]),
+             "library_ms": time_ms(lambda: [torch.matmul(a, wd)
+                                            for a, _, wd in prods]),
+             "bound_ms": bms, "bound_by": by}
+        timing[bits] = t
+        print(f"quant_matmul int{bits} timing (shared-expert FFN gate+up+"
+              f"down at T=128, base): kernel {t['ms']:.4f} ms | bound "
+              f"{bms:.4f} ms ({by}) | plain {t['plain_ms']:.4f} ms | "
+              f"torch.matmul on the dequantized bf16 weight "
+              f"{t['library_ms']:.4f} ms", flush=True)
+    return {"name": "quant_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:142",
+            "max_abs_err": worst, **timing[8]}
+
+
+def decode_int8_phase(gen) -> dict:
+    """Row 1's int8-pool variant (`decode_attention.py:342`, kv_bits=8):
+    int8 pools quantized per row and kv head, a permuted block table, rows
+    past each slot's pos and unreferenced pages poisoned (payload 127,
+    scale 1e4); every label with and without a window; the V scales of one
+    live page read as 0 as the fault model."""
+    b, h, hkv, d, ps, npp = (DEC8[k] for k in ("b", "h", "hkv", "d", "ps",
+                                                "npp"))
+    n_pages = b * npp + 5
+    kq, ks = quantize_kv(torch.randn(n_pages, ps, hkv, d, generator=gen,
+                                     device="cuda"))
+    vq, vs = quantize_kv(torch.randn(n_pages, ps, hkv, d, generator=gen,
+                                     device="cuda"))
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * npp]
+    bt = (perm + 1).reshape(b, npp).to(torch.int32)
+    # live lengths as the serve phase sees them: prompt 64-255 + generated
+    pos = torch.randint(64, 287, (b,), generator=gen, device="cuda")
+    rows = torch.arange(npp * ps, device="cuda")
+    dead = rows[None, :] > pos[:, None]
+    page_of = bt.long()[:, rows // ps]
+    r_of = (rows % ps).expand(b, -1)
+    unref = torch.ones(n_pages, dtype=torch.bool, device="cuda")
+    unref[bt.long().flatten()] = False
+    for pool, sc in ((kq, ks), (vq, vs)):
+        pool[page_of[dead], r_of[dead]] = 127
+        sc[page_of[dead], r_of[dead]] = 1e4
+        pool[unref] = 127
+        sc[unref] = 1e4
+    pos = pos.to(torch.int32)
+    worst = 0.0
+    vs_bad = vs.clone()               # a page of slot 0 live in any window
+    vs_bad[bt[0, (pos[0].item() - 20) // ps].long()] = 0.0
+    for label in MOE_LABELS:
+        cfg = CoarseningConfig.parse(label)
+        for window in (None, 100):
+            kw = dict(degree=cfg.degree, gapped=cfg.kind == "gapped",
+                      window=window)
+            got = ops.paged_decode_attention(q, kq, vq, bt, pos, label,
+                                             window=window, k_scale=ks,
+                                             v_scale=vs)
+            torch.cuda.synchronize()
+            want = ref.paged_split_kv(q, kq, vq, bt, pos, k_scale=ks,
+                                      v_scale=vs, **kw)
+            oracle = ref.paged_decode_attention(q, kq, vq, bt, pos,
+                                                window=window, k_scale=ks,
+                                                v_scale=vs)
+            bad = ref.paged_split_kv(q, kq, vq, bt, pos, k_scale=ks,
+                                     v_scale=vs_bad, **kw)
+            tol, tol_o = dec_tol(want), dec_tol(oracle)
+            err = (got.float() - want.float()).abs().max().item()
+            err_o = (got.float() - oracle.float()).abs().max().item()
+            fault = (bad.float() - want.float()).abs().max().item() / tol
+            print(f"decode int8 {label:4s} window={window}: max|kernel-"
+                  f"plain| / limit {err / tol:.3f}, max|kernel-gather "
+                  f"oracle| / limit {err_o / tol_o:.3f}; fault model (V "
+                  f"scales of a live page lost) / limit {fault:.1f}",
+                  flush=True)
+            if not (err <= tol and err_o <= tol_o):
+                raise SystemExit(f"int8 decode kernel {label} disagrees "
+                                 f"with its plain version")
+            if not fault > 1:
+                raise SystemExit("the int8 decode limit would not catch a "
+                                 "lost page of V scales")
+            worst = max(worst, err, err_o)
+    live = pos.long() + 1
+    pages = int(((live + ps - 1) // ps).sum().item())
+    io = int(live.sum().item()) * hkv * 2 * (d + 4) + 2 * b * h * d * 2 \
+        + pages * 4 + b * 4
+    bms, by = bound(io, 4 * int(live.sum().item()) * h * d)
+    ms = time_ms(lambda: ops.paged_decode_attention(q, kq, vq, bt, pos,
+                                                    k_scale=ks, v_scale=vs))
+    plain_ms = time_ms(lambda: ref.paged_split_kv(q, kq, vq, bt, pos,
+                                                  k_scale=ks, v_scale=vs))
+    kv = (ref.gather_pages(kq, bt).float() * ref.gather_scales(ks, bt)[
+        ..., None]).bfloat16().transpose(1, 2).contiguous()
+    vv = (ref.gather_pages(vq, bt).float() * ref.gather_scales(vs, bt)[
+        ..., None]).bfloat16().transpose(1, 2).contiguous()
+    mask = (torch.arange(kv.shape[2], device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qs = q.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kv, vv, attn_mask=mask))
+    print(f"decode int8 timing (base, B={b} H={h} Hkv={hkv} D={d} ps={ps}, "
+          f"live rows {int(live.sum())}): kernel {ms:.4f} ms | bound "
+          f"{bms:.4f} ms ({by}) | plain {plain_ms:.4f} ms | sdpa on "
+          f"dequantized pre-gathered bf16 views {lib_ms:.4f} ms", flush=True)
+    return {"name": "paged_decode_attention_int8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:342",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
 # -- phase 4: serve -----------------------------------------------------------
 
 SLOTS, CHUNK, PAGE, MAX_LEN, BLOCK = 8, 16, 16, 1024, 8
@@ -620,14 +1024,15 @@ def serve_phase(name: str) -> dict:
     print(f"pool: {num_pages} pages of {PAGE} (first {SLOTS} requests need "
           f"{need} at completion)", flush=True)
 
-    dec_mod.launches = mm_mod.launches = 0
+    zero_counts()
     done, npre = serve(cfg, params, prompts, num_pages, "cuda")
-    counts = {"paged_decode_attention": dec_mod.launches,
-              "coarsened_matmul": mm_mod.launches}
-    print(f"kernel launches on the served path: {counts}", flush=True)
+    counts = read_counts()
+    path = ("paged_decode_attention", "coarsened_matmul")
+    print(f"kernel launches on the served path: "
+          f"{ {k: counts[k] for k in path} }", flush=True)
     if npre < 1:
         raise SystemExit("the undersized pool forced no preemption")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in path) < 1:
         raise SystemExit(f"a kernel of the path never launched: {counts}")
 
     plain, _ = serve(cfg, params, prompts, num_pages, "ref")
@@ -638,6 +1043,306 @@ def serve_phase(name: str) -> dict:
           f"first divergence per request {agree}", flush=True)
     decode_step_parity(cfg, params, prompts)
     return counts
+
+
+# -- phase 6: serve qwen2-moe-a2.7b, bf16 and int8 (counters of every phase) --
+
+# every wrapper's launch counter: kernel name -> (module, attribute)
+COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
+            "paged_decode_attention_int8": (dec_mod, "int8_launches"),
+            "coarsened_matmul": (mm_mod, "launches"),
+            "quant_matmul": (mm_mod, "q_launches"),
+            "moe_ffn": (moe_mod, "launches"),
+            "quant_moe_ffn": (moe_mod, "q_launches"),
+            "flash_forward": (fa_mod, "fwd_launches"),
+            "flash_bwd_dq": (fa_mod, "dq_launches"),
+            "flash_bwd_dkv": (fa_mod, "dkv_launches")}
+
+
+def zero_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {n: getattr(mod, attr) for n, (mod, attr) in COUNTERS.items()}
+
+
+MOE_SERVE = dict(slots=8, chunk=16, page=16, max_len=512, block=8)
+MOE_REQ, MOE_GEN = 8, 32
+
+
+def moe_trace(vocab: int):
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(64, 256, MOE_REQ)
+    return [list(map(int, rng.integers(1, vocab, n))) for n in lens]
+
+
+def moe_engine(cfg, params, num_pages, quant=None, backend="cuda"):
+    m = MOE_SERVE
+    return PagedEngine(cfg, params, slots=m["slots"], num_pages=num_pages,
+                       page_size=m["page"], max_len=m["max_len"],
+                       chunk=m["chunk"], decode_block=m["block"],
+                       decode_backend=backend, ffn_backend=backend,
+                       moe_backend=backend, quant=quant, kv_quant=quant,
+                       device="cuda")
+
+
+def moe_serve(cfg, params, prompts, num_pages, quant) -> dict:
+    """One kernel-path run of the trace; checks the run and the launch
+    counts of its kernels, returns the counts."""
+    tag = f"qwen2-moe {quant or 'bf16'}"
+    eng = moe_engine(cfg, params, num_pages, quant)
+    sched = Scheduler(eng)
+    for p in prompts:
+        sched.submit(p, MOE_GEN)
+    zero_counts()
+    t0 = time.perf_counter()
+    done = sched.run_until_done()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    eng.pool.check()
+    if eng.pool.num_live or eng.pool.num_free != eng.pool.capacity \
+            or eng.any_active:
+        raise SystemExit(f"{tag} serve leaked pages")
+    if any(r.state is not State.FINISHED or len(r.output) != MOE_GEN
+           for r in done):
+        raise SystemExit(f"{tag} serve: not every request finished")
+    if eng.nan_rescues:
+        raise SystemExit(f"{tag} serve: NaN logits")
+    npre = sum(r.preemptions for r in done)
+    print(f"serve [{tag}]: {len(done)} requests FINISHED, {npre} "
+          f"preemptions, no page leak, no NaN; {eng.prefill_steps} prefill "
+          f"chunks, {eng.decode_steps} decode steps, {wall:.2f}s wall | "
+          f"prefill {eng.prefill_tokens} tok "
+          f"{eng.prefill_tokens / eng.prefill_device_s:.1f} tok/s | decode "
+          f"{eng.decoded_tokens} tok "
+          f"{eng.decoded_tokens / eng.decode_device_s:.1f} tok/s | weights "
+          f"{eng.weight_mib / 1024:.2f} GiB (dense "
+          f"{eng.weight_mib_dense / 1024:.2f}) | kv pool "
+          f"{eng.cache_mib / 1024:.3f} GiB (bf16 "
+          f"{eng.cache_mib_dense / 1024:.3f})", flush=True)
+    if eng.quant_report is not None:
+        print(f"  quantize_params: {eng.quant_report}", flush=True)
+    path = {k: v for k, v in counts.items() if v}
+    print(f"  kernel launches on the served path: {path}", flush=True)
+    if npre < 1:
+        raise SystemExit(f"{tag}: the undersized pool forced no preemption")
+    n_layers = cfg.n_layers
+    moe_k, dec_k, mm_k = (("quant_moe_ffn", "paged_decode_attention_int8",
+                           "quant_matmul") if quant else
+                          ("moe_ffn", "paged_decode_attention",
+                           "coarsened_matmul"))
+    want = {moe_k: n_layers * (eng.prefill_steps + eng.decode_steps),
+            dec_k: n_layers * eng.decode_steps}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad or counts[mm_k] < 3 * n_layers or counts[mm_k] % (3 * n_layers):
+        raise SystemExit(f"{tag}: launch counts {path} are not 24 per "
+                         f"prefill chunk and decode step (MoE), 24 per "
+                         f"decode step (decode), 72 per full prefill chunk "
+                         f"(shared FFN): {bad}")
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def lost_expert():
+    """Fault model of the half-layer check: both MoE wrappers lose the
+    first live expert's output while the block runs."""
+    saved = ops.moe_ffn, ops.quant_moe_ffn
+
+    def lose(fn):
+        def faulty(xe, w1, w3, w2, comb, *a, **kw):
+            y = fn(xe, w1, w3, w2, comb, *a, **kw)
+            y[int((comb > 0).any(dim=1).nonzero()[0].item())] = 0
+            return y
+        return faulty
+    ops.moe_ffn, ops.quant_moe_ffn = map(lose, saved)
+    try:
+        yield
+    finally:
+        ops.moe_ffn, ops.quant_moe_ffn = saved
+
+
+@contextlib.contextmanager
+def recorded_routes(sets: list):
+    """Append each MoE layer's top-k expert set per token ((T, k), sorted),
+    routed as `layers.moe` routes, to ``sets`` while the block runs."""
+    moe = L.moe
+
+    def recording(p, x, cfg, **kw):
+        xt = x.reshape(-1, x.shape[-1])
+        logits = (xt @ p["router"].to(xt.dtype)).float()
+        logits[:, cfg.n_experts:] = -1e30
+        idx = torch.topk(torch.softmax(logits, -1), cfg.top_k, dim=-1)[1]
+        sets.append(idx.sort(-1).values)
+        return moe(p, x, cfg, **kw)
+    L.moe = recording
+    try:
+        yield
+    finally:
+        L.moe = moe
+
+
+def moe_decode_step_parity(cfg, params, prompts, quant) -> None:
+    """One full-width decode step at 8 slots on one shared cache state
+    (prompts prefilled on the kernel path), kernel path against plain
+    path, on the engine's own (under ``quant``, int8) weights and pools.
+
+    Half-layer by half-layer: each layer's attention half runs on both
+    paths from the kernel path's hidden state and a copy of the same cache
+    (its output must agree within MOE_LAYER_LIMIT of the half's update),
+    then its MoE layer (router, experts, shared experts) on both paths from
+    the kernel path's attention output, so both routers pick the same
+    experts (its output must agree within MOE_LAYER_LIMIT of its largest
+    value).  Two planted faults of the kernel path must exceed those limits
+    at every layer: slot 0's first V page zeroed (its V scales, in an int8
+    pool) and the first live expert lost.
+
+    Whole `lm_decode_step`: each layer's top-k expert sets are recorded on
+    both paths.  A rounding difference can flip a near-tie of the router's
+    4th and 5th expert, which moves that slot's logits by far more than
+    any rounding; every slot that no layer flipped must agree within
+    MOE_LAYER_LIMIT of the largest |logit|, and at least one must be
+    held."""
+    tag = f"qwen2-moe {quant or 'bf16'}"
+    m = MOE_SERVE
+    eng = moe_engine(cfg, params,
+                     m["slots"] * pages_needed(m["max_len"], m["page"]) + 1,
+                     quant)
+    params = eng.params
+    for s_, p in enumerate(prompts[:m["slots"]]):
+        eng.admit(s_, Request(rid=s_, prompt=p, gen=MOE_GEN))
+        grow = pages_needed(len(p) + 1, m["page"]) - eng.bt.num_pages(s_)
+        eng.bt.append(s_, eng.pool.alloc(grow))
+    tok = torch.as_tensor(eng.last[:, None], device="cuda")
+    pos = torch.as_tensor(eng.written, device="cuda")
+    bt = torch.as_tensor(eng.bt.device(), device="cuda")
+    cfgs = {b: dataclasses.replace(eng.cfg, decode_backend=b, ffn_backend=b,
+                                   moe_backend=b) for b in ("cuda", "ref")}
+
+    def copy(layer):
+        return {k: v.clone() for k, v in layer.items()}
+
+    def ratio(got, want, scale):
+        gap = (got.float() - want.float()).abs().max().item()
+        return gap / (MOE_LAYER_LIMIT * scale.float().abs().max().item())
+
+    lost_v = "V-scale" if quant else "V"
+    checks = ("attention", "moe")
+    faults = (f"{lost_v} page 0 of slot 0 zeroed", "first live expert lost")
+    ratios = {k: [] for k in checks + faults}
+    cap = B.decode_moe_capacity(cfg, m["slots"])
+    x = M._embed(params, tok, cfg)
+    for p, layer, kind in zip(params["layers"], eng.cache["layers"],
+                              cfg.layer_kinds()):
+        def attn(c, cache):
+            return B.attn_decode_paged(p, x, c, cache, kind=kind, pos=pos,
+                                       block_table=bt)
+        xo = {b: attn(c, copy(layer)) for b, c in cfgs.items()}
+        ratios["attention"].append(ratio(xo["cuda"], xo["ref"],
+                                         xo["cuda"] - x))
+        bad = copy(layer)
+        bad["v_scale" if quant else "v"][bt[0, 0]] = 0
+        ratios[faults[0]].append(ratio(attn(cfgs["cuda"], bad), xo["ref"],
+                                       xo["cuda"] - x))
+        h = L.rmsnorm(p["ln2"], xo["cuda"], cfg.norm_eps)
+        y = {b: L.moe(p["moe"], h, c, capacity=cap)[0]
+             for b, c in cfgs.items()}
+        ratios["moe"].append(ratio(y["cuda"], y["ref"], y["cuda"]))
+        with lost_expert():
+            yb = L.moe(p["moe"], h, cfgs["cuda"], capacity=cap)[0]
+        ratios[faults[1]].append(ratio(yb, y["ref"], y["cuda"]))
+        x = xo["cuda"] + y["cuda"]
+    logits, routes = {}, {}
+    for b, c in cfgs.items():
+        cache = {"layers": [copy(layer) for layer in eng.cache["layers"]]}
+        routes[b] = []
+        with recorded_routes(routes[b]):
+            logits[b], _ = M.lm_decode_step(params, cache, tok, pos, c,
+                                            block_table=bt)
+        del cache
+    torch.cuda.synchronize()
+    if not len(routes["cuda"]) == len(routes["ref"]) == cfg.n_layers:
+        raise SystemExit(f"{tag}: the route recorder missed MoE layers")
+    flips = [sum(int(not torch.equal(a[s_], r[s_]))
+                 for a, r in zip(routes["cuda"], routes["ref"]))
+             for s_ in range(m["slots"])]
+    gap = (logits["cuda"] - logits["ref"]).abs().amax(-1).flatten().tolist()
+    limit = MOE_LAYER_LIMIT * logits["ref"].abs().max().item()
+    held = [s_ for s_ in range(m["slots"]) if not flips[s_]]
+    same = (logits["cuda"].argmax(-1) == logits["ref"].argmax(-1)).sum()
+    print(f"{tag} decode step parity (full width, 8 slots), half-layer by "
+          f"half-layer: max|kernel-plain| / limit per layer (limit "
+          f"{MOE_LAYER_LIMIT} of the attention half's update, of the MoE "
+          f"output's largest value)", flush=True)
+    for k, v in ratios.items():
+        print(f"  {'planted fault, ' if k in faults else ''}{k}: "
+              f"{[round(r, 3) for r in v]}", flush=True)
+    print(f"  whole lm_decode_step: layers whose top-{cfg.top_k} expert set "
+          f"differs, per slot {flips}; max|kernel-plain| per slot "
+          f"{[round(v, 4) for v in gap]}, limit {limit:.4f} "
+          f"({MOE_LAYER_LIMIT} of max|logit|) held on slots {held}; greedy "
+          f"argmax agrees on {int(same)}/{m['slots']} slots", flush=True)
+    if not all(math.isfinite(r) and r <= 1 for k in checks
+               for r in ratios[k]):
+        raise SystemExit(f"{tag}: kernel path and plain path disagree "
+                         f"within a half-layer")
+    if not all(r > 1 for k in faults for r in ratios[k]):
+        raise SystemExit(f"{tag}: the half-layer limit would not catch a "
+                         f"planted fault at every layer")
+    if not held or any(not gap[s_] <= limit for s_ in held) \
+            or not all(map(math.isfinite, gap)):
+        raise SystemExit(f"{tag}: a decode step's logits disagree on a "
+                         f"slot whose experts no layer flipped, or no slot "
+                         f"was free of flips")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# The two paths round decode attention's probabilities (kernel: f32;
+# plain: bf16) and the expert chain (kernel: h once; plain: every einsum)
+# at different points, 2^-8 relative per rounding, a few roundings deep:
+# 5%, as qwen3's end-to-end parity allows of the logits.  The attention
+# half's output also rounds to bf16 at the residual's scale, which grows
+# with depth; the MoE output is compared before the residual add.
+MOE_LAYER_LIMIT = 0.05
+
+
+def moe_serve_phase() -> dict:
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.lm_init(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"qwen2-moe-a2.7b full width: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+          f"{cfg.n_experts} experts (padded to {cfg.n_experts_padded}) top-"
+          f"{cfg.top_k} of width {cfg.moe_d_ff}, {cfg.n_shared_experts} "
+          f"shared, vocab {cfg.vocab}: {n_par / 1e9:.2f}B params, "
+          f"{tree_nbytes(params) / 2**30:.2f} GiB bf16, init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    prompts = moe_trace(cfg.vocab)
+    m = MOE_SERVE
+    need = sum(pages_needed(len(p) + MOE_GEN, m["page"]) for p in prompts)
+    num_pages = int(0.6 * need) + 1
+    print(f"pool: {num_pages} pages of {m['page']} (the {MOE_REQ} requests "
+          f"need {need} at completion); prompts {sorted(map(len, prompts))}",
+          flush=True)
+    totals = dict.fromkeys(COUNTERS, 0)
+    for quant in (None, "int8"):
+        counts = moe_serve(cfg, params, prompts, num_pages, quant)
+        for k, v in counts.items():
+            totals[k] += v
+        moe_decode_step_parity(cfg, params, prompts, quant)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 # -- phase 5: train -----------------------------------------------------------
@@ -724,12 +1429,12 @@ def train_phase() -> dict:
           f"{TRAIN['seq']} tokens, AdamW lr {TRAIN['lr']}, remat "
           f"{TRAIN['remat']}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    fa_mod.fwd_launches = fa_mod.dq_launches = fa_mod.dkv_launches = 0
+    zero_counts()
     losses, norms, secs = train_run(cfg, "cuda", steps=TRAIN_STEPS,
                                     ckpt_dir=None)
-    counts = {"flash_forward": fa_mod.fwd_launches,
-              "flash_bwd_dq": fa_mod.dq_launches,
-              "flash_bwd_dkv": fa_mod.dkv_launches}
+    all_counts = read_counts()
+    counts = {k: all_counts[k] for k in ("flash_forward", "flash_bwd_dq",
+                                         "flash_bwd_dkv")}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train [cuda]: losses {losses}, grad norms {norms}, step "
           f"seconds {[round(x, 4) for x in secs]}, peak memory {peak:.2f} "
@@ -778,7 +1483,7 @@ def train_phase() -> dict:
                              "uninterrupted losses exactly")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    return counts
+    return all_counts
 
 
 def _leaves(tree):
@@ -799,12 +1504,24 @@ def main() -> None:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
-    counts = serve_phase(name)
-    counts.update(train_phase())
+    kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen),
+               decode_int8_phase(gen), moe_phase(gen), quant_moe_phase(gen),
+               quant_matmul_phase(gen)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # launches: the sum over the main-path runs, each counted from zero
+    totals = dict.fromkeys(COUNTERS, 0)
+    for phase in (lambda: serve_phase(name), train_phase, moe_serve_phase):
+        for k, v in phase().items():
+            totals[k] += v
+        print(f"elapsed: {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(f"kernel launches over the main-path runs: {totals}", flush=True)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = totals[k["name"]]
+    if any(k["launches"] < 1 for k in kernels):
+        raise SystemExit(f"a kernel never launched on its path: {totals}")
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

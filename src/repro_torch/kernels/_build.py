@@ -3,10 +3,11 @@ each into a shared library with a plain C interface that ``ctypes`` loads.
 
 The build happens at first use, from the sources under ``csrc/`` only, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
-A library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
-printed once, when a library is built.
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  ``nvcc``'s ``-Xptxas -v`` report (registers,
+shared memory, spills) is printed once, one line per kernel, when a
+library is built.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -23,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "matmul", "flash_attention")
+SOURCES = ("decode_attention", "matmul", "flash_attention", "moe_ffn",
+           "quant_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "decode_attention": {
         "paged_decode_attention_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+        "paged_decode_attention_int8": [_P] * 11 + [_I] * 10 + [_F, _P],
     },
     "matmul": {
         "coarsened_matmul_bf16": [_P] * 3 + [_I] * 6 + [_P],
@@ -42,6 +45,13 @@ SIGNATURES = {
         "flash_fwd_bf16": [_P] * 6 + [_I] * 12 + [_F, _P],
         "flash_dq_bf16": [_P] * 8 + [_I] * 12 + [_F, _P],
         "flash_dkv_bf16": [_P] * 9 + [_I] * 12 + [_F, _P],
+    },
+    "moe_ffn": {
+        "moe_ffn_bf16": [_P] * 7 + [_I] * 6 + [_P],
+        "quant_moe_ffn": [_P] * 10 + [_I] * 8 + [_P],
+    },
+    "quant_matmul": {
+        "quant_matmul": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 
@@ -61,7 +71,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's identity
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
@@ -79,6 +91,22 @@ def _start(name: str) -> tuple[Path, subprocess.Popen | None, str]:
                                  stderr=subprocess.STDOUT, text=True), tmp
 
 
+def _report(log: str) -> list[str]:
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: its
+    (mangled) name, registers and shared memory, stack and spills."""
+    lines, name, spill = [], "", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name:
+            lines.append(f"  {name}: {ln.split(':', 1)[1].strip()}; "
+                         f"{spill}")
+            name = ""
+    return lines
+
+
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every source that has no library yet, all at once; returns
     {name: library path}.  Raises with nvcc's output when a build fails."""
@@ -91,9 +119,8 @@ def build(names=SOURCES) -> dict[str, Path]:
                 Path(tmp).unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for {n}.cu:\n{log}")
             os.replace(tmp, out)
-            report = [ln for ln in log.splitlines()
-                      if "ptxas info" in ln or "spill" in ln]
-            print(f"[build] {out.name}\n" + "\n".join(report), flush=True)
+            print(f"[build] {out.name}\n" + "\n".join(_report(log)),
+                  flush=True)
         paths[n] = out
     return paths
 

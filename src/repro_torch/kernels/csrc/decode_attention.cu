@@ -25,6 +25,14 @@
 // is skipped too.  Rows of a partly filled page past `pos` are masked to
 // zero weight, so poisoned tails and never-referenced pages cannot leak.
 // The combine is a second launch over (B*H) rows, D threads each.
+//
+// int8 pools (the `kv_bits=8` branch of `make_paged_kernel`, scale loads at
+// :295-301): K and V rows are int8 with one f32 scale per (row, kv head) in
+// (P, ps, Hkv) scale pools.  The scale is pulled out of the dot: a score is
+// (q . k_int) * s_k * scale, and a V row enters the sum as (p * s_v) * v_int,
+// so the int8 rows are staged as they are (half the bytes of bf16) and the
+// split-and-merge structure is the bf16 kernel's.  Bound: the live rows'
+// int8 K/V bytes plus their scales.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,10 +42,19 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int MAXG = 8;          // query heads per kv head this kernel takes
 
+__device__ __forceinline__ float kv_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float kv_float(int8_t x) { return (float)x; }
+
+// KV = __nv_bfloat16 (scales null) or int8_t (f32 scale pools (P, ps, Hkv))
+template <typename KV>
 __global__ void paged_partials_kernel(
     const __nv_bfloat16* __restrict__ q,        // (B, Hkv*G, D)
-    const __nv_bfloat16* __restrict__ k_pool,   // (P, ps, Hkv, D)
-    const __nv_bfloat16* __restrict__ v_pool,   // (P, ps, Hkv, D)
+    const KV* __restrict__ k_pool,              // (P, ps, Hkv, D)
+    const KV* __restrict__ v_pool,              // (P, ps, Hkv, D)
+    const float* __restrict__ k_scale,          // (P, ps, Hkv) or null
+    const float* __restrict__ v_scale,          // (P, ps, Hkv) or null
     const int* __restrict__ block_table,        // (B, npp)
     const int* __restrict__ pos,                // (B,)
     float* __restrict__ m_out,                  // (B, Hkv, G, n_splits)
@@ -52,10 +69,13 @@ __global__ void paged_partials_kernel(
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // (ps, d)
-  __nv_bfloat16* vs = ks + ps * d;                               // (ps, d)
+  KV* ks = reinterpret_cast<KV*>(smem);                          // (ps, d)
+  KV* vs = ks + ps * d;                                          // (ps, d)
   float* qs = reinterpret_cast<float*>(vs + ps * d);             // (g, d)
   float* sc = qs + g * d;                                        // (g, ps)
+  float* kss = sc + g * ps;                                      // (ps,)
+  float* vss = kss + ps;                                         // (ps,)
+  constexpr bool QUANT = sizeof(KV) == 1;
 
   const int p = pos[bb];
   const size_t part0 = (size_t)(bb * hkv + hh) * g * n_splits + si;
@@ -95,7 +115,7 @@ __global__ void paged_partials_kernel(
     acc[gi] = 0.f;
   }
 
-  const int vec_per_row = d / 8;                // 16-byte vectors per row
+  const int vec_per_row = d * (int)sizeof(KV) / 16;   // 16-byte vectors
   const int n_vec = ps * vec_per_row;
   for (int j = 0; j < c; ++j) {
     const int lp = gapped ? j * seg + si : si * c + j;
@@ -109,11 +129,17 @@ __global__ void paged_partials_kernel(
     __syncthreads();                            // previous page consumed
     for (int i = tid; i < n_vec; i += blockDim.x) {
       const int r = i / vec_per_row, cc = i - r * vec_per_row;
-      const size_t off = ((size_t)(pp * ps + r) * hkv + hh) * d + cc * 8;
+      const size_t off = ((size_t)(pp * ps + r) * hkv + hh) * d +
+                         cc * (16 / sizeof(KV));
       reinterpret_cast<uint4*>(ks)[i] =
           *reinterpret_cast<const uint4*>(k_pool + off);
       reinterpret_cast<uint4*>(vs)[i] =
           *reinterpret_cast<const uint4*>(v_pool + off);
+    }
+    if (QUANT && tid < ps) {
+      const size_t so = (size_t)(pp * ps + tid) * hkv + hh;
+      kss[tid] = k_scale[so];
+      vss[tid] = v_scale[so];
     }
     __syncthreads();
 
@@ -122,13 +148,14 @@ __global__ void paged_partials_kernel(
       const int gi = idx / ps, r = idx - gi * ps;
       float s = 0.f;
       for (int e = lane; e < d; e += 32)
-        s += qs[gi * d + e] * __bfloat162float(ks[r * d + e]);
+        s += qs[gi * d + e] * kv_float(ks[r * d + e]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
       if (lane == 0) {
         const int col = row0 + r;
         const bool ok = col <= p && (window <= 0 || col > p - window);
+        if (QUANT) s *= kss[r];                 // the K scale, after the dot
         sc[gi * ps + r] = ok ? s * scale : NEG;
       }
     }
@@ -146,7 +173,7 @@ __global__ void paged_partials_kernel(
         const float s = sc[gi * ps + r];
         const float pr = s <= NEG * 0.5f ? 0.f : expf(s - mx);
         lsum += pr;
-        a += pr * __bfloat162float(vs[r * d + tid]);
+        a += (QUANT ? pr * vss[r] : pr) * kv_float(vs[r * d + tid]);
       }
       l[gi] = l[gi] * alpha + lsum;
       acc[gi] = acc[gi] * alpha + a;
@@ -189,30 +216,30 @@ __global__ void combine_kernel(const float* __restrict__ m,
   out[row * d + tid] = __float2bfloat16(o / lt);
 }
 
-}  // namespace
-
-extern "C" int paged_decode_attention_bf16(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* block_table, const void* pos, void* m, void* l, void* acc,
-    void* out, int b, int hkv, int g, int d, int n_pages, int ps, int npp,
-    int c, int gapped, int window, float scale, void* stream) {
+template <typename KV>
+int launch_paged(const void* q, const void* k_pool, const void* v_pool,
+                 const void* k_scale, const void* v_scale,
+                 const void* block_table, const void* pos, void* m, void* l,
+                 void* acc, void* out, int b, int hkv, int g, int d,
+                 int n_pages, int ps, int npp, int c, int gapped, int window,
+                 float scale, cudaStream_t st) {
   if (g < 1 || g > MAXG || d % 32 || d > 1024 || npp % c)
     return (int)cudaErrorInvalidValue;
   const int n_splits = npp / c;
-  const size_t smem = (size_t)2 * ps * d * sizeof(__nv_bfloat16) +
+  const size_t smem = (size_t)2 * ps * d * sizeof(KV) +
                       (size_t)g * d * sizeof(float) +
-                      (size_t)g * ps * sizeof(float);
+                      (size_t)g * ps * sizeof(float) +
+                      (size_t)2 * ps * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_partials_kernel<KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  paged_partials_kernel<<<dim3(n_splits, hkv, b), d, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
+  paged_partials_kernel<KV><<<dim3(n_splits, hkv, b), d, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale),
       static_cast<const int*>(block_table), static_cast<const int*>(pos),
       static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
       n_pages, ps, hkv, g, d, npp, c, gapped, window, scale);
@@ -223,4 +250,30 @@ extern "C" int paged_decode_attention_bf16(
       static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(out),
       n_splits, d);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int paged_decode_attention_bf16(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_table, const void* pos, void* m, void* l, void* acc,
+    void* out, int b, int hkv, int g, int d, int n_pages, int ps, int npp,
+    int c, int gapped, int window, float scale, void* stream) {
+  return launch_paged<__nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, block_table, pos, m, l, acc, out,
+      b, hkv, g, d, n_pages, ps, npp, c, gapped, window, scale,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// int8 pools with f32 scale pools (P, ps, Hkv)
+extern "C" int paged_decode_attention_int8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* block_table,
+    const void* pos, void* m, void* l, void* acc, void* out, int b, int hkv,
+    int g, int d, int n_pages, int ps, int npp, int c, int gapped,
+    int window, float scale, void* stream) {
+  return launch_paged<int8_t>(
+      q, k_pool, v_pool, k_scale, v_scale, block_table, pos, m, l, acc, out,
+      b, hkv, g, d, n_pages, ps, npp, c, gapped, window, scale,
+      reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,420 @@
+// A blocked tensor-core GEMM tile for Hopper (sm_90a), shared by the MoE
+// FFN kernels (`moe_ffn.cu`) and the dequant-fused matmul
+// (`quant_matmul.cu`).
+//
+// One thread block (256 threads, 8 warps) owns BN = 64 output columns and
+// a chunk of MR = 2 * MT * 16 rows, and walks the contraction axis in
+// BK = 32 steps.  Warp w computes row tiles (w / 4) * MT .. + MT - 1
+// (16 rows each) of the chunk and columns (w % 4) * 16 .. + 15, with
+// mma.sync m16n8k16 (bf16 x bf16 -> f32) from shared memory.  Each step's
+// global loads go to registers first, so the next step's loads are in
+// flight while the current step multiplies (register double buffering);
+// there is no TMA, wgmma or deeper pipeline yet.
+//
+// The B operand (a weight, K x N row-major) arrives as bf16, as int8 with
+// one f32 scale per column (scale (1, N)), or as int4 nibbles packed two
+// to a byte along K (offset-binary, even rows in the low nibble; scale
+// (K/group, N)).  Packed values are widened to bf16 when they are staged
+// (every int8 and int4 value is exact in bf16), so the tensor cores form
+// the exact products x * q and sum them in f32; the scales are applied
+// after the product: int8 once per column in the epilogue, int4 once per
+// group (the group's partial sums are kept apart, scaled, then added).
+// An f32 A operand (the f32 intermediate of the dequant-fused MoE) is
+// split into hi = bf16(a) and lo = bf16(a - hi) and both are multiplied,
+// which keeps a to about 2^-17 of itself.
+//
+// Rows.  With a combine-weight array (`comb`, the MoE), a 16-row tile
+// whose rows all have weight 0 is dead: its output is exactly 0 (the
+// layer zeroes those rows of x too), so it is neither staged nor
+// multiplied, and a chunk with no live tile reads no weight byte at all.
+// Rows past the valid count (capacity 8 in a decode step is smaller than
+// one m16 tile) are zeroed in the A fragments, in registers; they are
+// never staged or stored.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gt {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BN = 64, BK = 32, NT = 256;
+constexpr int LDA = BK + 8;        // padded shared-memory row strides (bf16)
+constexpr int LDB = BN + 8;
+
+enum { B_BF16 = 0, B_INT8 = 1, B_INT4 = 2 };
+enum { EPI_SWIGLU_BF16 = 0, EPI_SWIGLU_F32 = 1, EPI_COMB = 2, EPI_STORE = 3 };
+
+struct Weight {                    // one B operand, per batch item
+  const void* q;                   // bf16 / int8 (K, N) or uint8 (K/2, N)
+  const float* s;                  // (1, N) int8 / (K/group, N) int4 scales
+  long long q_stride, s_stride;    // elements per batch item
+};
+
+struct Params {
+  const void* a;                   // bf16 or f32 rows, (batch * rows, K)
+  Weight w[2];
+  const float* comb;               // (batch, rows) or null: every row live
+  void* out;                       // (batch * rows, N) bf16 or f32
+  int rows, n, k, group;
+  int batch, degree, gapped;       // batch items (experts), coarsening
+  int row_blocks;                  // 1: rows coarsened in 128-row blocks
+};
+
+// D[16x8] += A[16x16] * B[16x8]; the PTX ISA fragment layouts with
+// lane = 4 * g + t: a0 (row g, k 2t..2t+1), a1 (row g+8), a2 (row g,
+// k 8+2t..), a3 (row g+8, k 8+2t..); b0 (k 2t..2t+1, col g), b1 (k 8+2t..);
+// d0, d1 (row g, cols 2t, 2t+1), d2, d3 (row g+8).
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 one row apart (p[0] low, p[ld] high)
+__device__ __forceinline__ uint32_t ld_pair_col(const bf16* p, int ld) {
+  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
+  return lo | (hi << 16);
+}
+
+// 8 signed bytes -> 8 bf16 (exact)
+__device__ __forceinline__ uint4 widen_i8(uint32_t lo4, uint32_t hi4) {
+  uint4 o;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t src = i < 2 ? lo4 : hi4;
+    const int sh = (i & 1) * 16;
+    const float x0 = (float)(int8_t)((src >> sh) & 0xff);
+    const float x1 = (float)(int8_t)((src >> (sh + 8)) & 0xff);
+    w[i] = pack2(x0, x1);
+  }
+  return o;
+}
+
+// 8 nibbles (shift 0: low, 4: high) of 8 bytes -> 8 bf16 of value q - 8
+__device__ __forceinline__ uint4 widen_i4(uint32_t lo4, uint32_t hi4,
+                                         int shift) {
+  uint4 o;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t src = i < 2 ? lo4 : hi4;
+    const int sh = (i & 1) * 16 + shift;
+    const float x0 = (float)((int)((src >> sh) & 0xf) - 8);
+    const float x1 = (float)((int)((src >> (sh + 8)) & 0xf) - 8);
+    w[i] = pack2(x0, x1);
+  }
+  return o;
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+
+// rows of a block's chunk: MoE (row_blocks 0) rows are the batch item's
+// own rows m0 + r; a coarsened matmul owns `degree` 128-row blocks,
+// adjacent (consecutive) or M/degree rows apart (gapped)
+__device__ __forceinline__ int global_row(const Params& p, int e, int m0,
+                                          int r) {
+  if (!p.row_blocks) return e * p.rows + m0 + r;
+  if (p.gapped)
+    return (r >> 7) * (p.rows / p.degree) + blockIdx.y * 128 + (r & 127);
+  return blockIdx.y * p.degree * 128 + r;
+}
+
+template <int MT, int NB, bool AF32, int BKIND, int EPI>
+__global__ void __launch_bounds__(NT)
+gemm_kernel(const Params p) {
+  constexpr int MR = 2 * MT * 16;                 // rows per chunk
+  constexpr int VA = AF32 ? BK / 4 : BK / 8;      // 16-byte vectors per A row
+  constexpr int RA = (MR * VA + NT - 1) / NT;     // A vectors per thread
+  constexpr int VB = BKIND == B_BF16 ? BK * BN / 8
+                     : BKIND == B_INT8 ? BK * BN / 16 : BK * BN / 32;
+  __shared__ __align__(16) bf16 sa[(AF32 ? 2 : 1) * MR * LDA];
+  __shared__ __align__(16) bf16 sb[NB * BK * LDB];
+  __shared__ int live[2 * MT];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;
+  const int n0 = blockIdx.x * BN;
+  const int items = p.row_blocks ? 1 : p.degree;
+
+  for (int j = 0; j < items; ++j) {
+    const int e = p.row_blocks ? 0
+                  : p.gapped ? j * (p.batch / p.degree) + blockIdx.y
+                             : blockIdx.y * p.degree + j;
+    const int nchunks = p.row_blocks ? 1 : (p.rows + MR - 1) / MR;
+    for (int ch = 0; ch < nchunks; ++ch) {
+      const int m0 = ch * MR;
+      const int nvalid = p.row_blocks ? MR : min(MR, p.rows - m0);
+      __syncthreads();                            // `live` is free again
+      if (tid < 2 * MT) {
+        int lv = 0;
+        const int r0 = tid * 16;
+        if (r0 < nvalid) {
+          if (p.comb == nullptr) {
+            lv = 1;
+          } else {
+            const float* cw = p.comb + (size_t)e * p.rows + m0;
+            for (int r = r0; r < min(r0 + 16, nvalid); ++r)
+              lv |= cw[r] != 0.f;
+          }
+        }
+        live[tid] = lv;
+      }
+      __syncthreads();
+      int any = 0;
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) any |= live[i];
+
+      constexpr int NACC = BKIND == B_INT4 ? 2 : 1;
+      float acc[NACC][NB][MT][2][4];
+#pragma unroll
+      for (int a = 0; a < NACC; ++a)
+#pragma unroll
+        for (int o = 0; o < NB; ++o)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) acc[a][o][mt][jn][x] = 0.f;
+
+      if (any) {
+        const bf16* abf = static_cast<const bf16*>(p.a);
+        const float* af = static_cast<const float*>(p.a);
+        uint4 ra[RA];
+        uint4 rb[NB];
+        // global -> registers for the step at k0 (live, valid rows only)
+        auto load = [&](int k0) {
+#pragma unroll
+          for (int it = 0; it < RA; ++it) {
+            const int i = tid + it * NT;
+            const int r = i / VA, c = i % VA;
+            if (i < MR * VA && r < nvalid && live[r >> 4]) {
+              const size_t row = (size_t)global_row(p, e, m0, r) * p.k + k0;
+              ra[it] = AF32 ? *reinterpret_cast<const uint4*>(af + row + c * 4)
+                            : *reinterpret_cast<const uint4*>(abf + row + c * 8);
+            }
+          }
+#pragma unroll
+          for (int o = 0; o < NB; ++o) {
+            if (tid < VB) {
+              if (BKIND == B_BF16) {
+                const int r = tid / (BN / 8), c = tid % (BN / 8);
+                const bf16* q = static_cast<const bf16*>(p.w[o].q) +
+                                (size_t)e * p.w[o].q_stride;
+                rb[o] = *reinterpret_cast<const uint4*>(
+                    q + (size_t)(k0 + r) * p.n + n0 + c * 8);
+              } else {
+                const int r = tid / (BN / 16), c = tid % (BN / 16);
+                const int kr = BKIND == B_INT8 ? k0 + r : k0 / 2 + r;
+                const uint8_t* q = static_cast<const uint8_t*>(p.w[o].q) +
+                                   (size_t)e * p.w[o].q_stride;
+                rb[o] = *reinterpret_cast<const uint4*>(
+                    q + (size_t)kr * p.n + n0 + c * 16);
+              }
+            }
+          }
+        };
+        // registers -> shared memory, widening packed weights to bf16
+        auto store = [&]() {
+#pragma unroll
+          for (int it = 0; it < RA; ++it) {
+            const int i = tid + it * NT;
+            const int r = i / VA, c = i % VA;
+            if (i < MR * VA && r < nvalid && live[r >> 4]) {
+              if (AF32) {
+                const float* x = reinterpret_cast<const float*>(&ra[it]);
+                uint2 hi, lo;
+                float h[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                  h[u] = __bfloat162float(__float2bfloat16_rn(x[u]));
+                hi.x = pack2(h[0], h[1]);
+                hi.y = pack2(h[2], h[3]);
+                lo.x = pack2(x[0] - h[0], x[1] - h[1]);
+                lo.y = pack2(x[2] - h[2], x[3] - h[3]);
+                *reinterpret_cast<uint2*>(&sa[r * LDA + c * 4]) = hi;
+                *reinterpret_cast<uint2*>(&sa[(MR + r) * LDA + c * 4]) = lo;
+              } else {
+                *reinterpret_cast<uint4*>(&sa[r * LDA + c * 8]) = ra[it];
+              }
+            }
+          }
+#pragma unroll
+          for (int o = 0; o < NB; ++o) {
+            if (tid < VB) {
+              bf16* sbo = sb + o * BK * LDB;
+              if (BKIND == B_BF16) {
+                const int r = tid / (BN / 8), c = tid % (BN / 8);
+                *reinterpret_cast<uint4*>(&sbo[r * LDB + c * 8]) = rb[o];
+              } else if (BKIND == B_INT8) {
+                const int r = tid / (BN / 16), c = tid % (BN / 16);
+                bf16* dst = &sbo[r * LDB + c * 16];
+                *reinterpret_cast<uint4*>(dst) = widen_i8(rb[o].x, rb[o].y);
+                *reinterpret_cast<uint4*>(dst + 8) =
+                    widen_i8(rb[o].z, rb[o].w);
+              } else {
+                const int r = tid / (BN / 16), c = tid % (BN / 16);
+                bf16* d0 = &sbo[(2 * r) * LDB + c * 16];
+                bf16* d1 = d0 + LDB;
+                *reinterpret_cast<uint4*>(d0) = widen_i4(rb[o].x, rb[o].y, 0);
+                *reinterpret_cast<uint4*>(d0 + 8) =
+                    widen_i4(rb[o].z, rb[o].w, 0);
+                *reinterpret_cast<uint4*>(d1) = widen_i4(rb[o].x, rb[o].y, 4);
+                *reinterpret_cast<uint4*>(d1 + 8) =
+                    widen_i4(rb[o].z, rb[o].w, 4);
+              }
+            }
+          }
+        };
+
+        load(0);
+        for (int k0 = 0; k0 < p.k; k0 += BK) {
+          __syncthreads();                        // previous step consumed
+          store();
+          __syncthreads();
+          if (k0 + BK < p.k) load(k0 + BK);       // in flight meanwhile
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            uint32_t bf[NB][2][2];
+#pragma unroll
+            for (int o = 0; o < NB; ++o)
+#pragma unroll
+              for (int jn = 0; jn < 2; ++jn) {
+                const bf16* b = sb + o * BK * LDB + (ks * 16 + 2 * t) * LDB +
+                                wc * 16 + jn * 8 + g;
+                bf[o][jn][0] = ld_pair_col(b, LDB);
+                bf[o][jn][1] = ld_pair_col(b + 8 * LDB, LDB);
+              }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              const int tile = wr * MT + mt;
+              if (!live[tile]) continue;          // warp-uniform
+              const int r = tile * 16 + g;
+              const bool ok0 = r < nvalid, ok1 = r + 8 < nvalid;
+#pragma unroll
+              for (int part = 0; part < (AF32 ? 2 : 1); ++part) {
+                const bf16* x = sa + (part * MR + r) * LDA + ks * 16 + 2 * t;
+                const uint32_t a0 = ok0 ? ld_pair(x) : 0u;
+                const uint32_t a1 = ok1 ? ld_pair(x + 8 * LDA) : 0u;
+                const uint32_t a2 = ok0 ? ld_pair(x + 8) : 0u;
+                const uint32_t a3 = ok1 ? ld_pair(x + 8 * LDA + 8) : 0u;
+#pragma unroll
+                for (int o = 0; o < NB; ++o)
+#pragma unroll
+                  for (int jn = 0; jn < 2; ++jn)
+                    mma(acc[NACC - 1][o][mt][jn], a0, a1, a2, a3,
+                        bf[o][jn][0], bf[o][jn][1]);
+              }
+            }
+            if (BKIND == B_INT4) {
+              // end of a scale group: acc += scale * the group's sums
+              const int kend = k0 + ks * 16 + 16;
+              if (kend % p.group == 0) {
+                const int grp = kend / p.group - 1;
+#pragma unroll
+                for (int o = 0; o < NB; ++o)
+#pragma unroll
+                  for (int jn = 0; jn < 2; ++jn) {
+                    const int col = n0 + wc * 16 + jn * 8 + 2 * t;
+                    const float2 s = *reinterpret_cast<const float2*>(
+                        p.w[o].s + (size_t)e * p.w[o].s_stride +
+                        (size_t)grp * p.n + col);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                      for (int x = 0; x < 4; ++x) {
+                        acc[0][o][mt][jn][x] +=
+                            ((x & 1) ? s.y : s.x) * acc[NACC - 1][o][mt][jn][x];
+                        acc[NACC - 1][o][mt][jn][x] = 0.f;
+                      }
+                  }
+              }
+            }
+          }
+        }
+      }
+
+      // epilogue: rows r0 = tile*16 + g and r0 + 8, columns col, col + 1
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int tile = wr * MT + mt;
+        const bool lv = live[tile] != 0;
+        if (!lv && EPI != EPI_COMB) continue;
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          const int col = n0 + wc * 16 + jn * 8 + 2 * t;
+          float v[NB][4];
+#pragma unroll
+          for (int o = 0; o < NB; ++o) {
+            float sx = 1.f, sy = 1.f;
+            if (BKIND == B_INT8 && lv) {
+              const float2 s = *reinterpret_cast<const float2*>(
+                  p.w[o].s + (size_t)e * p.w[o].s_stride + col);
+              sx = s.x;
+              sy = s.y;
+            }
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              v[o][x] = acc[0][o][mt][jn][x] * ((x & 1) ? sy : sx);
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = tile * 16 + g + half * 8;
+            if (r >= nvalid) continue;
+            const size_t orow = (size_t)global_row(p, e, m0, r);
+            const float x0 = v[0][2 * half], x1 = v[0][2 * half + 1];
+            if (EPI == EPI_SWIGLU_BF16 || EPI == EPI_SWIGLU_F32) {
+              const float h0 = silu(x0) * v[NB - 1][2 * half];
+              const float h1 = silu(x1) * v[NB - 1][2 * half + 1];
+              if (EPI == EPI_SWIGLU_BF16)
+                *reinterpret_cast<uint32_t*>(
+                    static_cast<bf16*>(p.out) + orow * p.n + col) =
+                    pack2(h0, h1);
+              else
+                *reinterpret_cast<float2*>(
+                    static_cast<float*>(p.out) + orow * p.n + col) =
+                    make_float2(h0, h1);
+            } else if (EPI == EPI_COMB) {
+              const float cw = lv ? p.comb[orow] : 0.f;
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) +
+                                         orow * p.n + col) =
+                  lv ? make_float2(x0 * cw, x1 * cw) : make_float2(0.f, 0.f);
+            } else {
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) +
+                                         orow * p.n + col) =
+                  make_float2(x0, x1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MT, int NB, bool AF32, int BKIND, int EPI>
+int launch(const Params& p, int grid_y, cudaStream_t st) {
+  dim3 grid(p.n / BN, grid_y);
+  gemm_kernel<MT, NB, AF32, BKIND, EPI><<<grid, NT, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gt

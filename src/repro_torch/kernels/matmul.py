@@ -1,5 +1,6 @@
-"""Coarsened blocked matmul: the wrapper of the CUDA kernel in
-``csrc/matmul.cu`` (it replaces `repro/kernels/matmul.py` `make_kernel`).
+"""Coarsened blocked matmul: the wrappers of the CUDA kernels in
+``csrc/matmul.cu`` (it replaces `repro/kernels/matmul.py` `make_kernel`)
+and ``csrc/quant_matmul.cu`` (the dequant-fused twin, `make_qkernel`).
 
 A thread block owns C row blocks of ``BM`` rows, adjacent (consecutive) or
 M/C rows apart (gapped), and ``BN * vector_width`` columns; the B tile of
@@ -8,8 +9,15 @@ row blocks.  bf16 inputs, float32 accumulation and output, as the Pallas
 kernel.  Bound on the H100: max(2mnk / 989 TFLOP/s, bytes / 3.35 TB/s);
 see the source for what the design does about it.
 
-On CPU tensors the wrapper computes the plain version (`ref.matmul`); on
-CUDA tensors it launches the kernel or raises.
+`quant_matmul` takes a packed `QTensor` weight (int8 with per-column
+scales, or int4 nibbles with per-group scales), widens it to bf16 in
+shared memory and applies the scales after the exact products.  It keeps
+the reference's tile rule (``m % (degree*128)``, ``n % (128*vector_width)``,
+``k % 256``, ``256 % group``) and takes degree <= 2, vector_width 1.
+Bound: max(2mnk / 989 TFLOP/s, (2mk + packed weight + 4mn) / 3.35 TB/s).
+
+On CPU tensors the wrappers compute the plain versions (`ref.matmul`,
+`ref.quant_matmul`); on CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -17,11 +25,17 @@ import torch
 
 from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
 from repro_torch.kernels import _build, ref
+from repro_torch.quant.qtypes import QTensor
 
 BM, BN, BK = 64, 64, 32             # the kernel's row, column and depth tiles
 MAX_TILE_PRODUCT = 4                # degree * vector_width, register budget
 
 launches = 0                        # kernel launches since the last reset
+q_launches = 0                      # dequant-fused launches since the reset
+
+# the reference qkernel's blocks (`repro/kernels/matmul.py:87`)
+Q_BM, Q_BN, Q_BK = 128, 128, 256
+Q_MAX_DEGREE = 2                    # 256 rows of f32 sums fill the registers
 
 
 def tileable(m: int, n: int, k: int, cfg: CoarseningConfig) -> bool:
@@ -65,4 +79,53 @@ def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "coarsened_matmul_bf16")
     launches += 1
+    return out
+
+
+def quant_matmul(a: torch.Tensor, qw: QTensor,
+                 cfg: CoarseningConfig | str = "auto") -> torch.Tensor:
+    """(m,k) @ packed (k,n) -> (m,n) float32 through the dequant-fused
+    kernel (int8: qw.q (k,n) + scale (1,n); int4: (k/2,n) uint8 nibbles +
+    (k/group,n))."""
+    global q_launches
+    cfg = resolve(cfg)
+    if a.dim() != 2 or len(qw.shape) != 2 or a.shape[1] != qw.shape[0]:
+        raise ValueError(f"quant_matmul: a {tuple(a.shape)} vs qw "
+                         f"{qw.shape}")
+    m, k = a.shape
+    n = qw.shape[1]
+    c, vw = cfg.degree, cfg.vector_width
+    if m % (c * Q_BM) or n % (Q_BN * vw) or k % Q_BK:
+        raise ValueError(f"shape ({m},{n},{k}) not tileable by "
+                         f"C*bm={c * Q_BM}, bn={Q_BN * vw}, bk={Q_BK}")
+    if qw.bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {qw.bits}")
+    if qw.bits == 4 and (qw.group % 2 or Q_BK % qw.group):
+        raise ValueError(f"int4 needs even bk tiled by group, got "
+                         f"bk={Q_BK}, group={qw.group}")
+    if a.device.type == "cpu":
+        return ref.quant_matmul(a, qw)
+    if c > Q_MAX_DEGREE or vw != 1:
+        raise ValueError(f"quant_matmul kernel takes degree <= "
+                         f"{Q_MAX_DEGREE} and vector_width 1, got "
+                         f"{cfg.label}")
+    if qw.bits == 4 and qw.group % 16:
+        raise ValueError(f"quant_matmul kernel takes int4 groups that are "
+                         f"multiples of 16, got {qw.group}")
+    ops_ = (a, qw.q, qw.scale)
+    if a.device.type != "cuda" or any(t.device != a.device for t in ops_):
+        raise ValueError("quant_matmul operands must share one CUDA device")
+    if a.dtype != torch.bfloat16 or qw.scale.dtype != torch.float32:
+        raise TypeError(f"quant_matmul kernel takes bf16 a and f32 scales, "
+                        f"got {a.dtype}, {qw.scale.dtype}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops_):
+        raise ValueError("quant_matmul kernel takes contiguous, 16-byte "
+                         "aligned operands")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = _build.library("quant_matmul").quant_matmul(
+        a.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(), out.data_ptr(),
+        m, n, k, qw.bits, qw.group, c, int(cfg.kind == KIND_GAPPED),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "quant_matmul")
+    q_launches += 1
     return out

@@ -7,10 +7,10 @@ Tensors on the CPU take each kernel's plain PyTorch version; tensors on a
 CUDA device take the hand-written kernel (or the call raises).
 
 `flash_attention` is differentiable (a `torch.autograd.Function` whose
-backward runs the dQ and dK/dV kernels).  `matmul` and
-`paged_decode_attention` have no backward: their kernels fill outputs
-that autograd cannot see through, so both raise when grad mode is on and
-an input requires grad, instead of silently dropping the gradient.
+backward runs the dQ and dK/dV kernels).  The other ops have no backward:
+their kernels fill outputs that autograd cannot see through, so they
+raise when grad mode is on and an input requires grad, instead of
+silently dropping the gradient.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.core.coarsening import BASE, CoarseningConfig, resolve
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import matmul as _matmul
+from repro_torch.kernels import moe_ffn as _moe
 
 
 def _check_no_grad(name: str, *tensors) -> None:
@@ -39,6 +40,30 @@ def matmul(a, b, cfg: CoarseningConfig | str = BASE):
     return _matmul.coarsened_matmul(a, b, cfg)
 
 
+def quant_matmul(a, qw, cfg: CoarseningConfig | str = BASE):
+    """(m,k) @ QTensor (k,n) -> (m,n) float32 through the dequant-fused
+    kernel (`repro/kernels/ops.py:137`)."""
+    _check_no_grad("ops.quant_matmul", a)
+    return _matmul.quant_matmul(a, qw, cfg)
+
+
+def moe_ffn(xe, w1, w3, w2, comb, cfg: CoarseningConfig | str = BASE):
+    """Grouped-expert fused gate/up/down FFN over the padded dispatch
+    buffer (`repro/kernels/ops.py:583`).  xe (E,C,d); w1, w3 (E,d,F); w2
+    (E,F,d); comb (E,C) -> (E,C,d) float32.  The coarsening axis is the
+    expert axis."""
+    _check_no_grad("ops.moe_ffn", xe, w1, w3, w2, comb)
+    return _moe.moe_ffn(xe, w1, w3, w2, comb, cfg)
+
+
+def quant_moe_ffn(xe, qw1, qw3, qw2, comb,
+                  cfg: CoarseningConfig | str = BASE):
+    """`moe_ffn` with QTensor expert weights (`repro/kernels/ops.py:606`),
+    f32 throughout."""
+    _check_no_grad("ops.quant_moe_ffn", xe, comb)
+    return _moe.quant_moe_ffn(xe, qw1, qw3, qw2, comb, cfg)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
                            cfg: CoarseningConfig | str = BASE, *,
                            window: int | None = None,
@@ -47,7 +72,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     """Split-KV decode attention through a per-slot block table.
     q: (B,1,H,D); pools: (P,page_size,Hkv,D); block_table: (B,npp) int32;
     pos: (B,) int32 -> (B,1,H,D).  The coarsening axis is the slot's
-    logical-page axis."""
+    logical-page axis.  ``k_scale`` / ``v_scale`` (P,page_size,Hkv) f32
+    mark int8 pools."""
     _check_no_grad("ops.paged_decode_attention", q, k_pool, v_pool)
     return _decode.paged_decode_attention(
         q, k_pool, v_pool, block_table, pos, cfg, window=window, scale=scale,

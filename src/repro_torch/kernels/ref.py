@@ -11,6 +11,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.quant.qtypes import QTensor, dequantize
 
 NEG = -1e30
 
@@ -18,6 +21,39 @@ NEG = -1e30
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(m,k) @ (k,n) in float32 (`repro/kernels/ref.py:44`)."""
     return torch.matmul(a.float(), b.float())
+
+
+def quant_matmul(a: torch.Tensor, qw: QTensor) -> torch.Tensor:
+    """The dequant-fused matmul's function (`repro/kernels/matmul.py:87`
+    `make_qkernel`): a cast to f32 against the dequantized f32 weight,
+    f32 product -> (m,n) f32."""
+    return torch.matmul(a.float(), dequantize(qw))
+
+
+# -- grouped-expert MoE FFN (`repro/kernels/moe_ffn.py`) ------------------------
+
+def moe_ffn(xe, w1, w3, w2, comb):
+    """`repro/kernels/ref.py:158-172`: per expert
+    ``(silu(xe@w1) * (xe@w3)) @ w2`` with f32 accumulation, the (C, F)
+    intermediate rounded once to xe's dtype (as the Pallas kernel,
+    `moe_ffn.py:62`), scaled by the combine weights.  xe (E,C,d);
+    w1, w3 (E,d,F); w2 (E,F,d); comb (E,C) -> (E,C,d) f32."""
+    x = xe.float()
+    h = F.silu(torch.matmul(x, w1.float())) * torch.matmul(x, w3.float())
+    ye = torch.matmul(h.to(xe.dtype).float(), w2.float())
+    return ye * comb[..., None].float()
+
+
+def quant_moe_ffn(xe, qw1: QTensor, qw3: QTensor, qw2: QTensor, comb):
+    """The dequant-fused MoE kernel's function (`repro/kernels/moe_ffn.py:110`
+    `make_qkernel`, :160-167): x cast to f32, the packed panes
+    dequantized to f32, and f32 throughout — h is NOT rounded (the
+    reference's own oracle, `repro/kernels/ops.py:619-623`, sends this
+    kernel through `moe_ffn`, which rounds it)."""
+    x = xe.float()
+    h = F.silu(torch.matmul(x, dequantize(qw1))) \
+        * torch.matmul(x, dequantize(qw3))
+    return torch.matmul(h, dequantize(qw2)) * comb[..., None].float()
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):
@@ -50,23 +86,38 @@ def gather_pages(pool, block_table):
     return pool[block_table.long()].reshape(b, npp * ps, hkv, d)
 
 
+def gather_scales(scale_pool, block_table):
+    """(P,ps,Hkv) scale pool + (B,npp) table -> (B, npp*ps, Hkv)."""
+    b, npp = block_table.shape
+    _, ps, hkv = scale_pool.shape
+    return scale_pool[block_table.long()].reshape(b, npp * ps, hkv)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
-                           window=None, scale=None):
+                           window=None, scale=None, k_scale=None,
+                           v_scale=None):
     """Gather-to-contiguous oracle of the paged split-KV kernel: resolve the
-    block table, then dense decode attention."""
-    return decode_attention(q, gather_pages(k_pool, block_table),
-                            gather_pages(v_pool, block_table), pos,
-                            window=window, scale=scale)
+    block table (int8 pools: and dequantize the gathered view with its
+    scales), then dense decode attention."""
+    k, v = gather_pages(k_pool, block_table), gather_pages(v_pool,
+                                                           block_table)
+    if k_scale is not None:
+        k = k.float() * gather_scales(k_scale, block_table)[..., None]
+        v = v.float() * gather_scales(v_scale, block_table)[..., None]
+    return decode_attention(q, k, v, pos, window=window, scale=scale)
 
 
 def paged_split_kv(q, k_pool, v_pool, block_table, pos, *, degree=1,
-                   gapped=False, window=None, scale=None):
+                   gapped=False, window=None, scale=None, k_scale=None,
+                   v_scale=None):
     """The paged split-KV kernel's own arithmetic, in one shot per split
     (`repro/kernels/decode_attention.py:208` `make_paged_kernel`): split
     ``si`` owns logical pages ``si*C + j`` (consecutive) or
     ``j*(npp/C) + si`` (gapped), resolved through the block table; a split
     wholly past ``pos`` (or left of the window) yields the empty partial;
-    rows past ``pos`` are masked; `combine` merges the splits.
+    rows past ``pos`` are masked; `combine` merges the splits.  int8 pools
+    (``k_scale`` / ``v_scale`` (P,ps,Hkv), the ``kv_bits=8`` branch) are
+    dequantized row by row as the panes are read (:295-301).
     q: (B,1,H,D); pools: (P,ps,Hkv,D); block_table: (B,npp); pos: (B,)
     -> (B,1,H,D) in q's dtype."""
     b, _, h, d = q.shape
@@ -81,8 +132,10 @@ def paged_split_kv(q, k_pool, v_pool, block_table, pos, *, degree=1,
     lp = j * seg + si if gapped else si * c + j               # (n_splits, C)
     phys = block_table.long()[:, lp]                           # (B,n,C)
 
-    def panes(pool):                                           # (B,Hkv,n,C*ps,D)
+    def panes(pool, sc):                                       # (B,Hkv,n,C*ps,D)
         x = pool[phys].float()                                 # (B,n,C,ps,Hkv,D)
+        if sc is not None:
+            x = x * sc[phys][..., None]
         return x.permute(0, 4, 1, 2, 3, 5).reshape(b, hkv, n_splits,
                                                    c * ps, d)
 
@@ -98,13 +151,14 @@ def paged_split_kv(q, k_pool, v_pool, block_table, pos, *, degree=1,
         live = live & (last[None] > pos[:, :, 0] - window)
     mask = mask & live[..., None]
     qg = q.reshape(b, hkv, g, d).float()
-    s = torch.einsum("bhgd,bhnkd->bhgnk", qg, panes(k_pool)) * scale
+    s = torch.einsum("bhgd,bhnkd->bhgnk", qg, panes(k_pool, k_scale)) \
+        * scale
     mk = mask[:, None, None]                                   # (B,1,1,n,C*ps)
     s = torch.where(mk, s, torch.full_like(s, NEG))
     m = s.amax(dim=-1)                                         # (B,Hkv,G,n)
     p = torch.exp(s - m[..., None]) * mk
     l = p.sum(dim=-1)
-    acc = torch.einsum("bhgnk,bhnkd->bhgnd", p, panes(v_pool))
+    acc = torch.einsum("bhgnk,bhnkd->bhgnd", p, panes(v_pool, v_scale))
     out = combine(m, l, acc)                                   # (B,Hkv,G,D)
     return out.reshape(b, 1, h, d).to(q.dtype)
 

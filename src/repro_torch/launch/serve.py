@@ -2,14 +2,21 @@
 `_serve_paged`, :274): submit a seeded request trace to the `Scheduler`,
 which admits, preempts and retires it against the `PagedEngine`.
 
-The port serves the paged cache only.  Decode attention and the prefill
-FFN take the hand-written CUDA kernels (``--backend cuda``, the default);
-``--backend ref`` selects the plain PyTorch paths.  Weights are random,
-from seed 0.  Runs on the card unless ``--device cpu``:
+The port serves the paged cache only.  Decode attention, the prefill FFN
+and the MoE experts take the hand-written CUDA kernels (``--backend cuda``,
+the default); ``--backend ref`` selects the plain PyTorch paths.
+``--quant int8|int4`` quantizes the FFN / expert / attention weights at
+engine construction (dequant-fused kernels where the geometry tiles) and
+``--kv-quant int8`` stores the K/V pools as int8 with per-row scales.
+Weights are random, from seed 0.  Runs on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --slots 8 --requests 16 --prompt-len 256 --gen-tokens 64 \\
       --max-len 1024 --page-size 16 --chunk 16 --decode-block 8
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --quant int8 --kv-quant int8 --slots 8 --requests 8 --prompt-len 128 \\
+      --gen-tokens 32 --max-len 512 --chunk 16 --decode-block 8
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --slots 3 --requests 5 --prompt-len 8 --gen-tokens 10 --max-len 32 \\
@@ -45,8 +52,9 @@ def serve_paged(args, cfg, params, rng, device) -> list:
                          page_size=args.page_size, max_len=args.max_len,
                          chunk=args.chunk, decode_block=args.decode_block,
                          decode_backend=args.backend,
-                         ffn_backend=args.backend, metrics=reg,
-                         trace=trace, device=device)
+                         ffn_backend=args.backend, moe_backend=args.backend,
+                         quant=args.quant, kv_quant=args.kv_quant,
+                         metrics=reg, trace=trace, device=device)
     sched = Scheduler(engine, max_waiting=args.max_waiting, metrics=reg,
                       trace=trace)
     for _ in range(args.requests):
@@ -92,9 +100,12 @@ def serve_paged(args, cfg, params, rng, device) -> list:
     ovh = max(dt - pdev - ddev, 0.0)
     print(f"overhead: scheduler+host {ovh:.2f}s of {dt:.2f}s wall "
           f"({ovh / max(dt, 1e-9):.0%})")
-    print(f"memory: weights {engine.weight_mib:.2f} MiB | paged kv pool "
-          f"{engine.cache_mib:.2f} MiB ({engine.pool.tokens_capacity} "
-          f"pooled tokens)")
+    print(f"memory: weights {engine.weight_mib:.2f} MiB (dense "
+          f"{engine.weight_mib_dense:.2f}) | paged kv pool "
+          f"{engine.cache_mib:.2f} MiB (bf16 {engine.cache_mib_dense:.2f}; "
+          f"{engine.pool.tokens_capacity} pooled tokens)")
+    if engine.quant_report is not None:
+        print(f"quant {engine.cfg.quant}: {engine.quant_report}")
     if done:
         print("sample output:", done[0].output[:8])
     if args.trace_out:
@@ -134,8 +145,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-block", type=int, default=8,
                     help="decode steps run between host syncs")
     ap.add_argument("--backend", default="cuda", choices=["ref", "cuda"],
-                    help="cuda = the paged split-KV decode kernel and the "
-                         "coarsened FFN matmul; ref = the plain paths")
+                    help="cuda = the paged split-KV decode kernel, the "
+                         "coarsened FFN matmul and the grouped-expert MoE "
+                         "kernels; ref = the plain paths")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "int8", "int4"],
+                    help="weight-only quantization of FFN / MoE / attention "
+                         "projections (dequant-fused kernels where the "
+                         "geometry allows, dense-dequant elsewhere)")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="int8 KV pools: quantize on append, dequant fused "
+                         "into the split-KV decode kernel")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per page (= the decode kernel's kv block)")
     ap.add_argument("--num-pages", type=int, default=None,

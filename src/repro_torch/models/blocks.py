@@ -1,11 +1,12 @@
-"""The attention + FFN residual block: the whole-sequence block of training
-and the paged serving path's blocks.
+"""The attention + (FFN | MoE) residual block: the whole-sequence block of
+training and the paged serving path's blocks.
 
 Mirrors, from `repro/models/blocks.py`:
 
 * `attn_block` (:44-69) — one block over a whole sequence (training);
 * `attn_cache_init_paged` (:185) — one global (P, page_size, Hkv, hd) K and
-  V pool per layer;
+  V pool per layer (int8 pools plus (P, page_size, Hkv) f32 scale pools
+  under ``cfg.kv_quant="int8"``);
 * `_paged_rows` (:202) — physical (page, row) of logical cache rows;
 * `attn_block_decode_paged` (:211) — one decode step of a block;
 * `attn_block_prefill_paged` (:260) — one prefill chunk of a block.
@@ -13,8 +14,12 @@ Mirrors, from `repro/models/blocks.py`:
 The reference updates the pools functionally (``cache["k"].at[page,
 row].set(...)`` returns a new pool).  Here both block functions write the
 new K/V rows INTO the pools in place (``pool[page, row] = rows``) and
-return the same dict, so a serving step never copies a pool.  bf16 (or
-float32) pools only: int8 pools raise NotImplementedError.
+return the same dict, so a serving step never copies a pool.  int8 pools
+are quantized on append (`quantize_kv`, per row and kv head).
+
+The serving blocks run MoE layers (`layers.moe`, with the reference's
+capacities); the whole-sequence training block does not yet (MoE training
+is not ported) and raises for them.
 """
 from __future__ import annotations
 
@@ -22,18 +27,37 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ATTN_LOCAL, ModelConfig
+from repro_torch.quant.qtypes import asdense, dequantize_kv, quantize_kv
 
 
 def attn_cache_init_paged(cfg: ModelConfig, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, device=None):
-    """Zeroed K and V pools, (num_pages, page_size, Hkv, hd) each.  Page 0
+    """Zeroed K and V pools, (num_pages, page_size, Hkv, hd) each, in
+    ``dtype`` — or, under ``cfg.kv_quant="int8"``, int8 pools plus zeroed
+    f32 ``k_scale`` / ``v_scale`` pools (num_pages, page_size, Hkv).  Page 0
     is the NULL page: never allocated; inactive slots' writes land there."""
-    if cfg.kv_quant == "int8":
-        raise NotImplementedError("paged cache: int8 KV pools are not ported "
-                                  "yet")
     shape = (num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_rows(cache, page, row, k, v):
+    """Scatter new K/V rows into the pools in place, quantizing them on
+    append for int8 pools (`repro/models/blocks.py:232-240`, :271-281)."""
+    if "k_scale" in cache:
+        k, ks = quantize_kv(k.float())
+        v, vs = quantize_kv(v.float())
+        cache["k_scale"][page, row] = ks
+        cache["v_scale"][page, row] = vs
+    cache["k"][page, row] = k.to(cache["k"].dtype)
+    cache["v"][page, row] = v.to(cache["v"].dtype)
 
 
 def _paged_rows(block_table, pos, page_size):
@@ -50,10 +74,13 @@ def _paged_rows(block_table, pos, page_size):
     return block_table.long()[bidx, lp], pos % page_size
 
 
-def _ffn_out(p, x, cfg: ModelConfig):
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+def _ffn_out(p, x, cfg: ModelConfig, moe_capacity=None):
+    """x + FFN(ln2(x)); MoE layers with ``moe_capacity`` (the reference's
+    decode and prefill capacities)."""
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.n_experts:
+        y, _ = L.moe(p["moe"], h, cfg, capacity=moe_capacity)
+        return x + y
     return x + L.ffn(p["ffn"], h, backend=cfg.ffn_backend)
 
 
@@ -63,8 +90,13 @@ def attn_block(p, x, cfg: ModelConfig, *, kind: str, pos,
     ``pos_trivial`` says row i IS position i, which lets the flash kernel's
     causal mask stand in for the positions.  Attention dispatches through
     `layers.flash_attention` with the config's attn_* knobs; the FFN is
-    dense (MoE raises).  Returns x only: the reference's second output is
-    the MoE auxiliary loss, 0 for dense blocks."""
+    dense (MoE raises: MoE training is not ported yet).  Returns x only:
+    the reference's second output is the MoE auxiliary loss, 0 for dense
+    blocks."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE training (the whole-sequence block "
+                                  "and its auxiliary loss) is not ported "
+                                  "yet")
     window = cfg.window if kind == ATTN_LOCAL else None
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = L.qkv_project(p["attn"], h, cfg, pos)
@@ -76,20 +108,18 @@ def attn_block(p, x, cfg: ModelConfig, *, kind: str, pos,
         sparse=cfg.attn_sparse, sparse_cfg=cfg.attn_sparse_cfg,
         backend=cfg.attn_backend, cfg=cfg.attn_cfg,
         bwd_cfg=cfg.attn_bwd_cfg, bq=cfg.attn_bq, bkv=cfg.attn_bkv)
-    o = o.reshape(x.shape[0], x.shape[1], -1) @ p["attn"]["wo"].to(x.dtype)
+    o = o.reshape(x.shape[0], x.shape[1], -1) @ asdense(p["attn"]["wo"],
+                                                        x.dtype)
     return _ffn_out(p, x + o, cfg)
 
 
-def attn_block_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
-                            block_table, write_mask=None):
-    """One decode step.  x: (B,1,d); cache {'k','v'} pools (P,ps,kv,hd);
-    block_table (B,npp) int32; pos (B,).  The new K/V row scatters through
-    the table into the pools IN PLACE, then attention reads the pools
+def attn_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
+                      block_table, write_mask=None):
+    """The attention half of one decode step: x + attention(ln1(x)).  The
+    new K/V row scatters through the table into the pools IN PLACE
+    (quantized on append for int8 pools), then attention reads the pools
     through the same table.  ``write_mask`` (B,) bool routes a slot's write
-    to the NULL page.  Returns (x, cache) with ``cache`` the same dict."""
-    if "k_scale" in cache:
-        raise NotImplementedError("paged decode: int8 KV pools are not "
-                                  "ported yet")
+    to the NULL page."""
     window = cfg.window if kind == ATTN_LOCAL else None
     ps = cache["k"].shape[1]
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -97,13 +127,32 @@ def attn_block_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
     page, row = _paged_rows(block_table, pos, ps)
     if write_mask is not None:
         page = torch.where(write_mask, page, torch.zeros_like(page))
-    cache["k"][page, row] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][page, row] = v[:, 0].to(cache["v"].dtype)
+    _write_rows(cache, page, row, k[:, 0], v[:, 0])
     o = L.paged_decode_attention(q, cache["k"], cache["v"], block_table, pos,
                                  window=window, backend=cfg.decode_backend,
-                                 cfg=cfg.decode_attn_cfg)
-    o = o.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"].to(x.dtype)
-    return _ffn_out(p, x + o, cfg), cache
+                                 cfg=cfg.decode_attn_cfg,
+                                 k_scale=cache.get("k_scale"),
+                                 v_scale=cache.get("v_scale"))
+    return x + o.reshape(x.shape[0], 1, -1) @ asdense(p["attn"]["wo"],
+                                                      x.dtype)
+
+
+def decode_moe_capacity(cfg: ModelConfig, b: int) -> int:
+    """MoE capacity of a decode step of ``b`` slots (the reference's
+    max(4, min(B, 4 * top_k)), `repro/models/blocks.py:250`)."""
+    return max(4, min(b, 4 * cfg.top_k))
+
+
+def attn_block_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
+                            block_table, write_mask=None):
+    """One decode step.  x: (B,1,d); cache {'k','v'[,'k_scale','v_scale']}
+    pools (P,ps,kv,hd); block_table (B,npp) int32; pos (B,).  The attention
+    half (`attn_decode_paged`) writes the new K/V row in place; MoE layers
+    then run with `decode_moe_capacity`.  Returns (x, cache) with
+    ``cache`` the same dict."""
+    x = attn_decode_paged(p, x, cfg, cache, kind=kind, pos=pos,
+                          block_table=block_table, write_mask=write_mask)
+    return _ffn_out(p, x, cfg, decode_moe_capacity(cfg, x.shape[0])), cache
 
 
 def attn_block_prefill_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
@@ -113,10 +162,10 @@ def attn_block_prefill_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
     attention gathers each slot's logical view back out of the pools and
     runs the chunked plain attention (the reference has no prefill kernel
     on this path).  Non-admitted slots are write-protected by the caller
-    nulling their table rows.  Returns (x, cache) with the same dict."""
-    if "k_scale" in cache:
-        raise NotImplementedError("paged prefill: int8 KV pools are not "
-                                  "ported yet")
+    nulling their table rows.  int8 pools are quantized on append and the
+    gathered view is dequantized (to x's dtype) before attention.  MoE
+    layers run with capacity B*T, as the reference.  Returns (x, cache)
+    with the same dict."""
     b, t, _ = x.shape
     ps = cache["k"].shape[1]
     npp = block_table.shape[1]
@@ -125,11 +174,15 @@ def attn_block_prefill_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = L.qkv_project(p["attn"], h, cfg, pos)
     page, row = _paged_rows(block_table, pos, ps)
-    cache["k"][page, row] = k.to(cache["k"].dtype)
-    cache["v"][page, row] = v.to(cache["v"].dtype)
+    _write_rows(cache, page, row, k, v)
     bt = block_table.long()
     ka = cache["k"][bt].reshape(b, npp * ps, cfg.n_kv_heads, cfg.hd)
     va = cache["v"][bt].reshape(b, npp * ps, cfg.n_kv_heads, cfg.hd)
+    if "k_scale" in cache:
+        ka = dequantize_kv(ka, cache["k_scale"][bt].reshape(b, npp * ps, -1)
+                           ).to(x.dtype)
+        va = dequantize_kv(va, cache["v_scale"][bt].reshape(b, npp * ps, -1)
+                           ).to(x.dtype)
     o = L.mea_attention(q, ka, va, causal=True, window=window, q_pos=pos)
-    o = o.reshape(b, t, -1) @ p["attn"]["wo"].to(x.dtype)
-    return _ffn_out(p, x + o, cfg), cache
+    o = o.reshape(b, t, -1) @ asdense(p["attn"]["wo"], x.dtype)
+    return _ffn_out(p, x + o, cfg, moe_capacity=b * t), cache

@@ -46,9 +46,19 @@ def _nest(items):
 
 
 def layer_leaves(cfg: ModelConfig) -> set:
-    """Dotted leaf names of one attention + dense-FFN layer of ``cfg``."""
+    """Dotted leaf names of one attention + dense-FFN (or MoE) layer of
+    ``cfg``: an MoE layer has ``moe.router``, ``moe.w1`` / ``w3`` / ``w2``
+    of shape (E_pad, ., .), and with shared experts ``moe.shared.*`` and
+    ``moe.shared_gate``."""
     names = {"ln1.scale", "ln2.scale", "attn.wq", "attn.wk", "attn.wv",
-             "attn.wo", "ffn.w1", "ffn.w3", "ffn.w2"}
+             "attn.wo"}
+    if cfg.n_experts:
+        names |= {"moe.router", "moe.w1", "moe.w3", "moe.w2"}
+        if cfg.n_shared_experts:
+            names |= {"moe.shared.w1", "moe.shared.w3", "moe.shared.w2",
+                      "moe.shared_gate"}
+    else:
+        names |= {"ffn.w1", "ffn.w3", "ffn.w2"}
     if cfg.qkv_bias:
         names |= {"attn.bq", "attn.bk", "attn.bv"}
     if cfg.qk_norm:
@@ -60,8 +70,9 @@ def _check_layer(leaves, cfg: ModelConfig) -> None:
     got = {".".join(path) for path, _ in leaves}
     want = layer_leaves(cfg)
     if got != want:
-        raise ValueError(f"layer leaves differ from an attention + dense-FFN "
-                         f"layer: unconsumed {sorted(got - want)}, missing "
+        raise ValueError(f"layer leaves differ from an attention + "
+                         f"{'MoE' if cfg.n_experts else 'dense-FFN'} layer: "
+                         f"unconsumed {sorted(got - want)}, missing "
                          f"{sorted(want - got)}")
 
 
@@ -82,9 +93,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
     Every leaf of ``tree`` must be consumed: an unknown leaf raises.
     Tensors land on ``cuda`` unless ``device="cpu"``.
     """
-    if cfg.is_encdec or cfg.n_experts or any(
-            k not in ("G", "L") for k in cfg.layer_kinds()):
-        raise NotImplementedError(f"{cfg.name}: only attention + dense-FFN "
+    if cfg.is_encdec or any(k not in ("G", "L") for k in cfg.layer_kinds()):
+        raise NotImplementedError(f"{cfg.name}: only attention + FFN / MoE "
                                   f"decoders are ported yet")
     device = resolve_device(device)
     period, n_periods = _period(cfg)

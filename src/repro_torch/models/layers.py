@@ -1,13 +1,15 @@
 """Model building blocks: RMSNorm, RoPE, the GQA q/k/v projection, chunked
 memory-efficient attention, the training/prefill flash-attention dispatch,
-decode attention (dense and paged dispatch) and the SwiGLU FFN.
+decode attention (dense and paged dispatch, bf16 or int8 pools), the SwiGLU
+FFN (dense or quantized weights) and the top-k MoE layer.
 
 Mirrors `repro.models.layers` function for function, on PyTorch tensors.
 ``backend`` values: ``"ref"`` takes the plain path, ``"cuda"`` the port's
 hand-written kernel (on CPU tensors, that kernel's plain version).
 Weights are cast to the activations' dtype where they are used, as the
 reference's ``asdense(w, x.dtype)`` does, so float32 master weights train
-with bf16 compute.
+with bf16 compute; quantized (`QTensor`) weights are dequantized there by
+the same `asdense`, except where a dequant-fused kernel takes them.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.coarsening import resolve
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant.qtypes import QTensor, asdense, dequantize_kv
 
 NEG = -1e30
 BACKENDS = ("ref", "cuda")
@@ -65,9 +68,9 @@ def qkv_project(p, x, cfg: ModelConfig, pos):
         raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
     b, s, _ = x.shape
     hd, nq, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = x @ asdense(p["wq"], x.dtype)
+    k = x @ asdense(p["wk"], x.dtype)
+    v = x @ asdense(p["wv"], x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -227,12 +230,14 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
                            window=None, scale=None, backend: str = "ref",
-                           cfg="auto"):
+                           cfg="auto", k_scale=None, v_scale=None):
     """Single-token attention against a PAGED cache
-    (`repro/models/layers.py:457-502`).  A kernel backend dispatches the
+    (`repro/models/layers.py:457-504`).  A kernel backend dispatches the
     block-table split-KV kernel when the per-slot page count tiles by the
     coarsening degree; everything else gathers the table into contiguous
-    per-slot views and takes the dense plain path."""
+    per-slot views and takes the dense plain path.  ``k_scale`` /
+    ``v_scale`` (P,ps,Hkv) mark int8 pools: the kernel takes them as they
+    are; the plain path dequantizes the gathered views to float32 first."""
     h, hkv = q.shape[2], k_pool.shape[2]
     npp = block_table.shape[1]
     if _uses_kernel(backend) and h % hkv == 0:
@@ -240,10 +245,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
         if npp % rcfg.degree == 0:
             return ops.paged_decode_attention(q, k_pool, v_pool, block_table,
                                               pos, rcfg, window=window,
-                                              scale=scale)
-    return decode_attention(q, ref.gather_pages(k_pool, block_table),
-                            ref.gather_pages(v_pool, block_table), pos,
-                            window=window, scale=scale)
+                                              scale=scale, k_scale=k_scale,
+                                              v_scale=v_scale)
+    k_view = ref.gather_pages(k_pool, block_table)
+    v_view = ref.gather_pages(v_pool, block_table)
+    if k_scale is not None:
+        k_view = dequantize_kv(k_view, ref.gather_scales(k_scale,
+                                                         block_table))
+        v_view = dequantize_kv(v_view, ref.gather_scales(v_scale,
+                                                         block_table))
+    return decode_attention(q, k_view, v_view, pos, window=window,
+                            scale=scale)
 
 
 def ffn(p, x, *, backend: str = "ref", cfg="auto"):
@@ -252,13 +264,29 @@ def ffn(p, x, *, backend: str = "ref", cfg="auto"):
     the rows tile as the reference requires (T % 128, d % 256, d_ff % 256);
     otherwise they are the plain float32 product.  A ``cfg`` the kernel
     cannot tile raises, as the reference's kernel builder does.  Each
-    product is cast back to x's dtype, as the reference."""
+    product is cast back to x's dtype, as the reference.
+
+    Quantized weights (`QTensor`) take the dequant-fused kernel
+    (`ops.quant_matmul`) on the same rule plus ``256 % group`` (:646-653);
+    everything else dequantizes densely (`asdense`) and continues as
+    above, the reference's fallback — so decode's T = slots rows take it."""
     shp = x.shape
     xt = x.reshape(-1, shp[-1])
     t, d = xt.shape
-    w1, w3, w2 = (p[n].to(x.dtype) for n in ("w1", "w3", "w2"))
+    kernel = _uses_kernel(backend)
+    if isinstance(p["w1"], QTensor):
+        d_ff = p["w1"].shape[-1]
+        g = p["w1"].group or 256
+        if kernel and not (t % 128 or d % 256 or d_ff % 256 or 256 % g):
+            rcfg = resolve(cfg)
+
+            def qmm(a, qw):
+                return ops.quant_matmul(a.contiguous(), qw, rcfg).to(x.dtype)
+            h = F.silu(qmm(xt, p["w1"])) * qmm(xt, p["w3"])
+            return qmm(h, p["w2"]).reshape(shp)
+    w1, w3, w2 = (asdense(p[n], x.dtype) for n in ("w1", "w3", "w2"))
     d_ff = w1.shape[1]
-    if _uses_kernel(backend) and not (t % 128 or d % 256 or d_ff % 256):
+    if kernel and not (t % 128 or d % 256 or d_ff % 256):
         rcfg = resolve(cfg)
 
         def mm(a, b):
@@ -268,3 +296,91 @@ def ffn(p, x, *, backend: str = "ref", cfg="auto"):
             return torch.matmul(a.float(), b.float()).to(x.dtype)
     h = F.silu(mm(xt, w1)) * mm(xt, w3)
     return mm(h, w2).reshape(shp)
+
+
+# -- MoE (top-k, optional shared experts) ---------------------------------------
+
+def moe_default_capacity(t: int, e: int, k: int) -> int:
+    """The moe() default per-expert capacity (factor 1.5, floor 8, clamped
+    to the token count), `repro/models/layers.py:691`."""
+    return min(t, max(8, int(1.5 * k * t / e)))
+
+
+def moe_expert_ffn(xe, w1, w3, w2, comb, cfg: ModelConfig):
+    """Per-expert gate/up/down over the padded dispatch buffer, scaled by
+    the combine weights (`repro/models/layers.py:698-739`): xe (E,C,d),
+    w1/w3 (E,d,F), w2 (E,F,d), comb (E,C) -> (E,C,d) float32.
+
+    ``cfg.moe_backend="cuda"`` dispatches the grouped-expert kernel (bf16
+    weights) or its dequant-fused twin (`QTensor` weights, when the int4
+    group tiles d and F), with the expert axis as the coarsening axis
+    (``cfg.moe_ffn_cfg``); an explicit degree the expert axis cannot tile
+    takes the einsum path below, as in the reference.  That path rounds at
+    every einsum, as the reference's fallback does."""
+    e, c, d = xe.shape
+    f = w1.shape[-1]
+    if _uses_kernel(cfg.moe_backend):
+        rcfg = resolve(cfg.moe_ffn_cfg)
+        if isinstance(w1, QTensor):
+            if (w1.bits == 8 or (d % w1.group == 0 and f % w1.group == 0)) \
+                    and e % rcfg.degree == 0:
+                return ops.quant_moe_ffn(xe, w1, w3, w2, comb, rcfg)
+        elif e % rcfg.degree == 0:
+            return ops.moe_ffn(xe, w1.to(xe.dtype), w3.to(xe.dtype),
+                               w2.to(xe.dtype), comb, rcfg)
+    w1, w3, w2 = (asdense(w, xe.dtype).float() for w in (w1, w3, w2))
+    xf = xe.float()
+    h = F.silu(torch.matmul(xf, w1).to(xe.dtype))
+    h = (h * torch.matmul(xf, w3).to(xe.dtype)).float()
+    ye = torch.matmul(h, w2).to(xe.dtype)
+    return (ye * comb[..., None].to(ye.dtype)).float()
+
+
+_COMBINE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "float16": torch.float16}
+
+
+def moe(p, x, cfg: ModelConfig, *, capacity: int | None = None,
+        renorm: bool = True):
+    """Top-k MoE with per-expert top-capacity dispatch
+    (`repro/models/layers.py:742-801`, the single-device path; the
+    expert-parallel `_moe_shardmap` is not ported).  x: (B,S,d) ->
+    ((B,S,d), aux load-balance loss).  Overflow tokens are dropped;
+    pad experts get -1e30 router logits; the combine-scatter accumulates
+    in ``cfg.moe_combine_dtype``; shared experts run through `ffn` with
+    ``cfg.ffn_backend``, scaled by a sigmoid gate."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    e_pad = cfg.n_experts_padded
+    xt = x.reshape(t, d)
+    logits = (xt @ p["router"].to(xt.dtype)).float()
+    if e_pad != e:
+        logits = torch.where(torch.arange(e_pad, device=x.device) < e,
+                             logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)                  # (T,k)
+    if renorm:
+        w = w / (w.sum(-1, keepdim=True) + 1e-9)
+
+    onehot = F.one_hot(idx, e_pad).float()                 # (T,k,E_pad)
+    frac = onehot.sum(dim=(0, 1)) / t
+    aux = e * torch.sum(frac * probs.mean(dim=0))
+
+    cap = capacity if capacity is not None else moe_default_capacity(t, e, k)
+    cap = min(cap, t)
+    tokw = torch.einsum("tke,tk->et", onehot, w)           # (E_pad,T)
+    topw, topi = torch.topk(tokw, cap, dim=-1)             # (E_pad,C)
+    live = topw > 0.0
+    xe = xt[topi.reshape(-1)].reshape(e_pad, cap, d)
+    xe = xe * live[..., None].to(xe.dtype)
+    ye = moe_expert_ffn(xe, p["w1"], p["w3"], p["w2"], topw * live, cfg)
+    cdt = _COMBINE_DTYPES[cfg.moe_combine_dtype]
+    y = torch.zeros((t, d), dtype=cdt, device=x.device).index_add_(
+        0, topi.reshape(-1), ye.reshape(-1, d).to(cdt))
+    y = y.to(x.dtype)
+    if cfg.n_shared_experts:
+        gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()
+                             ).to(x.dtype)
+        y = y + ffn(p["shared"], xt, backend=cfg.ffn_backend) * gate
+    return y.reshape(b, s, d), aux

@@ -15,8 +15,9 @@ Differences from the reference, all of layout and not of arithmetic:
 * the paged cache is ``{"layers": [{"k", "v"}, ...]}`` and `lm_prefill` /
   `lm_decode_step` write its pools IN PLACE (the reference returns a new
   cache); both still return the cache for symmetry;
-* only attention + dense-FFN stacks are ported (global and local layers);
-  recurrent, SSM, MoE and enc-dec models raise NotImplementedError.
+* attention stacks (global and local layers) with dense-FFN or MoE
+  layers are ported; recurrent, SSM and enc-dec models raise
+  NotImplementedError, and so does MoE training (`lm_apply` / `lm_loss`).
 """
 from __future__ import annotations
 
@@ -38,9 +39,9 @@ REMATS = ("none", "full")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.n_experts or any(
+    if cfg.is_encdec or any(
             k not in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds()):
-        raise NotImplementedError(f"{cfg.name}: only attention + dense-FFN "
+        raise NotImplementedError(f"{cfg.name}: only attention + FFN / MoE "
                                   f"decoders are ported yet")
 
 
@@ -52,7 +53,12 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator | None = None,
             device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random weights drawn with ``generator`` (seed it for repeatable
     weights; it must live on ``device``) in the reference's distributions:
-    embedding N(0, 0.02^2), projections N(0, 1/d_in), RMSNorm scales 0.
+    embedding N(0, 0.02^2), projections N(0, 1/d_in), RMSNorm scales 0;
+    MoE layers (`repro/models/layers.py:674`): router and shared gate
+    N(0, 1/d), experts (E_pad, d, F) / (E_pad, F, d) N(0, 1/d_in), the
+    shared experts one SwiGLU of width n_shared * moe_d_ff.  Each tensor is
+    drawn in float32 and cast at once, one at a time (a full-width
+    qwen2-moe-a2.7b would not fit in float32).
     Matmul weights and the embedding in ``dtype`` (bf16 for serving;
     float32 master weights for training, the reference's layout,
     `layers.py:78-85`), norm scales float32.  Not meant to reproduce JAX's
@@ -68,6 +74,21 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator | None = None,
 
     def dense(d_in, d_out, std=None):
         return normal((d_in, d_out), std or 1.0 / math.sqrt(d_in))
+
+    def swiglu(d_in, width):
+        return {"w1": dense(d_in, width), "w3": dense(d_in, width),
+                "w2": dense(width, d_in)}
+
+    def moe_layer():
+        e, ff = cfg.n_experts_padded, cfg.moe_d_ff
+        p = {"router": dense(d, e),
+             "w1": normal((e, d, ff), 1.0 / math.sqrt(d)),
+             "w3": normal((e, d, ff), 1.0 / math.sqrt(d)),
+             "w2": normal((e, ff, d), 1.0 / math.sqrt(ff))}
+        if cfg.n_shared_experts:
+            p["shared"] = swiglu(d, cfg.n_shared_experts * ff)
+            p["shared_gate"] = dense(d, 1)
+        return p
 
     def norm(d):
         return {"scale": torch.zeros(d, dtype=torch.float32, device=dev)}
@@ -86,10 +107,12 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator | None = None,
                 attn[n] = torch.zeros(w * hd, dtype=dtype, device=dev)
         if cfg.qk_norm:
             attn["qnorm"], attn["knorm"] = norm(hd), norm(hd)
-        layers.append({"ln1": norm(d), "attn": attn, "ln2": norm(d),
-                       "ffn": {"w1": dense(d, cfg.d_ff),
-                               "w3": dense(d, cfg.d_ff),
-                               "w2": dense(cfg.d_ff, d)}})
+        layer = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
+        if cfg.n_experts:
+            layer["moe"] = moe_layer()
+        else:
+            layer["ffn"] = swiglu(d, cfg.d_ff)
+        layers.append(layer)
     params["layers"] = layers
     return params
 
@@ -193,8 +216,9 @@ def lm_init_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
                         dtype=torch.bfloat16, device=None) -> dict:
     """Paged decode cache: one global K and V pool (num_pages, page_size,
     Hkv, hd) per attention layer, all sharing ONE page-id space (page p is
-    row p of every layer's pool).  Slots reach their rows through their
-    block table.  Runs on ``cuda`` unless ``device="cpu"``."""
+    row p of every layer's pool); int8 pools with f32 scale pools under
+    ``cfg.kv_quant="int8"``.  Slots reach their rows through their block
+    table.  Runs on ``cuda`` unless ``device="cpu"``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     return {"layers": [B.attn_cache_init_paged(cfg, num_pages, page_size,

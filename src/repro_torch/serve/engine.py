@@ -27,10 +27,16 @@ pools are written in place by `lm_prefill` / `lm_decode_step`
 (``self.cache`` is never reassigned), where the reference rebinds
 ``self.cache`` to each call's returned cache.
 
+* **Quantization** (:106-116): ``quant="int8"|"int4"`` runs
+  `quantize_params` over the weights at construction (``quant_report``);
+  ``kv_quant="int8"`` builds int8 pools with f32 scale pools.  Both the
+  dense and the quantized sizes are kept (``weight_mib_dense`` /
+  ``weight_mib``, ``cache_mib_dense`` / ``cache_mib``).
+
 Not ported: host-swap ``suspend`` / ``resume`` (their absence makes the
 scheduler take the recompute path on preemption), shared prefixes
-(`register_prefix` and `drop_prefix` raise NotImplementedError), weight
-and KV quantization, MoE backends and the tuner warm-up.
+(`register_prefix` and `drop_prefix` raise NotImplementedError) and the
+tuner warm-up.
 
 Greedy sampling only: a request's outputs equal its solo run, whatever its
 co-residents.
@@ -47,6 +53,7 @@ from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import ENGINE_TRACK, NULL_TRACER, Registry
+from repro_torch.quant.qtypes import quantize_params, tree_nbytes
 from repro_torch.serve.paging import (BlockTables, DecodeFault, PagePool,
                                       pages_needed)
 
@@ -54,11 +61,7 @@ MAX_NAN_RETRIES = 4
 
 
 def _tree_mib(tree) -> float:
-    if isinstance(tree, dict):
-        return sum(_tree_mib(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_tree_mib(v) for v in tree)
-    return tree.numel() * tree.element_size() / 2**20
+    return tree_nbytes(tree) / 2**20
 
 
 class PagedEngine:
@@ -67,22 +70,33 @@ class PagedEngine:
     num_pages counts POOL pages including the reserved null page; the
     per-slot table holds ceil(max_len / page_size) entries and admission
     rejects any prompt_len + gen_tokens > max_len outright.  ``params`` must
-    already live on ``device`` (``cuda`` unless ``device="cpu"``)."""
+    already live on ``device`` (``cuda`` unless ``device="cpu"``); with
+    ``quant`` they are quantized here (the caller's tree is left as it
+    is, so the caller may free it)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int,
                  num_pages: int, page_size: int, max_len: int,
                  chunk: int = 16, decode_block: int = 1,
                  decode_backend: str | None = None,
                  ffn_backend: str | None = None,
+                 moe_backend: str | None = None, quant: str | None = None,
+                 kv_quant: str | None = None,
                  metrics: Registry | None = None, trace=None, device=None):
         if cfg.is_encdec:
             raise NotImplementedError("PagedEngine: enc-dec models are not "
                                       "supported")
-        if decode_backend is not None:
-            cfg = dataclasses.replace(cfg, decode_backend=decode_backend)
-        if ffn_backend is not None:
-            cfg = dataclasses.replace(cfg, ffn_backend=ffn_backend)
+        for field, value in (("decode_backend", decode_backend),
+                             ("ffn_backend", ffn_backend),
+                             ("moe_backend", moe_backend), ("quant", quant),
+                             ("kv_quant", kv_quant)):
+            if value is not None:
+                cfg = dataclasses.replace(cfg, **{field: value})
         self.device = resolve_device(device)
+        self.weight_mib_dense = _tree_mib(params)
+        self.quant_report = None
+        if cfg.quant in ("int8", "int4"):
+            params, self.quant_report = quantize_params(
+                params, cfg.quant, group=cfg.quant_group)
         self.obs = metrics if metrics is not None else Registry()
         self.trace = trace if trace is not None else NULL_TRACER
         self.cfg, self.params = cfg, params
@@ -95,6 +109,9 @@ class PagedEngine:
         self.cache = M.lm_init_cache_paged(cfg, num_pages, page_size,
                                            device=self.device)
         self.cache_mib = _tree_mib(self.cache)
+        # what the same pool would take in bf16 (2 bytes per K/V value)
+        self.cache_mib_dense = (2 * cfg.n_layers * num_pages * page_size
+                                * cfg.n_kv_heads * cfg.hd * 2 / 2**20)
         self.weight_mib = _tree_mib(params)
 
         self.active = np.zeros((slots,), bool)

@@ -127,9 +127,10 @@ def test_paged_decode_rejects_what_the_kernel_does_not_take(paged):
     _, (tq, tk, tv, tbt, tpos) = _both(paged)
     with pytest.raises(ValueError, match="not tileable"):
         tops.paged_decode_attention(tq, tk, tv, tbt[:, :6], tpos, "con4")
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
         tops.paged_decode_attention(tq, tk, tv, tbt, tpos,
-                                    k_scale=tk[..., 0], v_scale=tv[..., 0])
+                                    k_scale=tk[:, :, :, 0],
+                                    v_scale=tv[:, :, 0])  # not (P, ps, Hkv)
     with pytest.raises(ValueError, match="shapes"):
         tops.paged_decode_attention(tq, tk, tv, tbt, tpos[:1])
     with pytest.raises(ValueError, match="divisible"):
@@ -174,9 +175,24 @@ def test_matmul_rejects_untileable_shapes():
 
 def test_cpu_wrappers_count_no_launches(paged):
     """Launch counters move only where a CUDA kernel launches."""
+    from repro_torch.kernels import moe_ffn as t_moe
+    from repro_torch.quant import quantize
+
+    def counts():
+        return (t_dec.launches, t_dec.int8_launches, t_mm.launches,
+                t_mm.q_launches, t_moe.launches, t_moe.q_launches)
+
     _, (tq, tk, tv, tbt, tpos) = _both(paged)
-    before = (t_dec.launches, t_mm.launches)
+    before = counts()
     tops.paged_decode_attention(tq, tk, tv, tbt, tpos)
+    tops.paged_decode_attention(tq, tk, tv, tbt, tpos,
+                                k_scale=tk[..., 0], v_scale=tv[..., 0])
     tops.matmul(torch.zeros(128, 64, dtype=torch.bfloat16),
                 torch.zeros(64, 64, dtype=torch.bfloat16))
-    assert (t_dec.launches, t_mm.launches) == before
+    tops.quant_matmul(torch.zeros(128, 256, dtype=torch.bfloat16),
+                      quantize(torch.ones(256, 128), "int8"))
+    xe, w = torch.zeros(4, 8, 64), torch.ones(4, 64, 64)
+    tops.moe_ffn(xe, w, w, w, torch.zeros(4, 8))
+    q = quantize(w, "int4")
+    tops.quant_moe_ffn(xe, q, q, q, torch.zeros(4, 8))
+    assert counts() == before
