@@ -21,13 +21,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    twin (int8 and int4) and the dequant-fused matmul (int8 and int4), each
    error printed as a ratio of its limit beside a fault model (a lost page
    of V scales, a lost expert, a lost scale, swapped nibbles) that must
-   exceed it.
+   exceed it.  The contiguous split-KV decode (bf16 and int8 caches, B 8,
+   S 1024, bkv 128, one slot at pos S + 6) and the short-q verify (bf16
+   and int8 pools, T 5, page 16) for every label, with and without a
+   window, beside their fault models (a lost kv block or page, lost V
+   scales, and for verify row t's mask shifted by one).
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
    are zeroed just before this run and read just after it.  Then the same
    trace through the plain paths, and one full-width `lm_decode_step` on a
-   shared cache, kernel path against plain path.
+   shared cache, kernel path against plain path.  From the same weights:
+   the trace through `BatchedServer` (contiguous caches), bf16 and then
+   int8 KV, each with 28 contiguous-decode launches per decode step and a
+   full-width contiguous `lm_decode_step`, kernel path against plain path;
+   a full-width verify-vs-decode check (row t of `lm_verify_step` against
+   `lm_decode_step` at pos0 + t, kernel path, within 5% of the largest
+   logit, with a shifted mask shown to exceed it); and 8 requests of 32
+   tokens through `Scheduler` over `SpecPagedEngine` (K 4, an undersized
+   pool) twice, a `draft_of` draft and a self draft, each with every
+   request FINISHED, no page leak, a preemption and 28 verify launches per
+   verify step; their tokens against a `PagedEngine` run are reported.
 5. train  — full-width qwen3-0.6b training through `launch.train.train`
    (float32 master weights from a seeded generator, bf16 compute, batch 4
    x 1024 tokens, AdamW, remat none): 4 steps on the flash kernels with
@@ -50,8 +64,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checked.  One full-width `lm_decode_step`, kernel path against plain
    path.
 7. result — the card's name and power limit again, the kernels' JSON line
-   (launches summed over the main-path runs of phases 4-6), then the
-   device JSON line, last.
+   (launches summed over the main-path runs of phases 4-6; the int8-pool
+   verify runs on no served path and is checked in phase 3 only), then
+   the device JSON line, last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -87,8 +102,9 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.quant import (dequantize, quantize, quantize_kv,  # noqa: E402
                                tree_nbytes)
+from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.serve import (PagedEngine, Request, Scheduler,  # noqa: E402
-                               State)
+                               SpecPagedEngine, State, draft_of)
 from repro_torch.serve.paging import pages_needed  # noqa: E402
 
 SEED = 0
@@ -248,9 +264,10 @@ def decode_phase(gen: torch.Generator) -> dict:
                                              window=window)
             torch.cuda.synchronize()
             cfg = CoarseningConfig.parse(label)
-            want = ref.paged_split_kv(q, kp, vp, bt, pos, degree=cfg.degree,
-                                      gapped=cfg.kind == "gapped",
-                                      window=window)
+            want = ref.verify_split_kv(q, kp, vp, bt, pos,
+                                       degree=cfg.degree,
+                                       gapped=cfg.kind == "gapped",
+                                       window=window)
             oracle = ref.paged_decode_attention(q, kp, vp, bt, pos,
                                                 window=window)
             err = (got.float() - want.float()).abs().max().item()
@@ -272,7 +289,7 @@ def decode_phase(gen: torch.Generator) -> dict:
     flops = int(4 * live.sum().item() * h * d)
     bound_ms = max(io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     ms = time_ms(lambda: ops.paged_decode_attention(q, kp, vp, bt, pos))
-    plain_ms = time_ms(lambda: ref.paged_split_kv(q, kp, vp, bt, pos))
+    plain_ms = time_ms(lambda: ref.verify_split_kv(q, kp, vp, bt, pos))
     # yardstick: SDPA over the slots' pre-gathered contiguous views (the
     # gather itself is not timed), K/V heads expanded for GQA, pos masked
     kv = ref.gather_pages(kp, bt).transpose(1, 2)             # (b,hkv,S,d)
@@ -869,12 +886,12 @@ def decode_int8_phase(gen) -> dict:
                                              window=window, k_scale=ks,
                                              v_scale=vs)
             torch.cuda.synchronize()
-            want = ref.paged_split_kv(q, kq, vq, bt, pos, k_scale=ks,
+            want = ref.verify_split_kv(q, kq, vq, bt, pos, k_scale=ks,
                                       v_scale=vs, **kw)
             oracle = ref.paged_decode_attention(q, kq, vq, bt, pos,
                                                 window=window, k_scale=ks,
                                                 v_scale=vs)
-            bad = ref.paged_split_kv(q, kq, vq, bt, pos, k_scale=ks,
+            bad = ref.verify_split_kv(q, kq, vq, bt, pos, k_scale=ks,
                                      v_scale=vs_bad, **kw)
             tol, tol_o = dec_tol(want), dec_tol(oracle)
             err = (got.float() - want.float()).abs().max().item()
@@ -899,7 +916,7 @@ def decode_int8_phase(gen) -> dict:
     bms, by = bound(io, 4 * int(live.sum().item()) * h * d)
     ms = time_ms(lambda: ops.paged_decode_attention(q, kq, vq, bt, pos,
                                                     k_scale=ks, v_scale=vs))
-    plain_ms = time_ms(lambda: ref.paged_split_kv(q, kq, vq, bt, pos,
+    plain_ms = time_ms(lambda: ref.verify_split_kv(q, kq, vq, bt, pos,
                                                   k_scale=ks, v_scale=vs))
     kv = (ref.gather_pages(kq, bt).float() * ref.gather_scales(ks, bt)[
         ..., None]).bfloat16().transpose(1, 2).contiguous()
@@ -917,6 +934,228 @@ def decode_int8_phase(gen) -> dict:
     return {"name": "paged_decode_attention_int8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:342",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+# -- phase 3: contiguous decode (row 3) and short-q verify (row 4) ------------
+
+# row 3: BatchedServer's decode at qwen3-0.6b's widths, 8 slots, max_len 1024,
+# the reference's decode_bkv of 128; row 4: SpecPagedEngine's verify at the
+# same widths with K = 4 (T = 5 rows a slot), page 16, 64 pages a slot.  Both
+# are held at DEC_ULPS like the paged decode.
+CONTIG = dict(b=8, h=16, hkv=8, d=128, s=1024, bkv=128)
+VER = dict(b=8, h=16, hkv=8, d=128, ps=16, npp=64, t=5)
+
+
+def kv_operands(k, v, dead, quant: bool):
+    """bf16 K/V, or int8 K/V quantized per row and kv head with their f32
+    scales; rows under ``dead`` poisoned (1e4, or payload 127 at scale
+    1e4) -> (k, v, scales kwargs)."""
+    if not quant:
+        k, v = k.bfloat16(), v.bfloat16()
+        k[dead], v[dead] = 1e4, 1e4
+        return k, v, {}
+    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    for x, sc in ((k, ks), (v, vs)):
+        x[dead], sc[dead] = 127, 1e4
+    return k, v, {"k_scale": ks, "v_scale": vs}
+
+
+def dequant(x, sc):
+    """int8 rows times their scales in f32; bf16 rows as they are."""
+    return x if sc is None else x.float() * sc[..., None]
+
+
+def contig_phase(gen: torch.Generator, quant: bool) -> dict:
+    """Row 3 (`decode_attention.py:171`, bf16 or int8 caches): every label
+    with and without a window; slot 7 carries pos = S + 6, a finished
+    slot's position after a decode block of 8, so every row of it counts
+    and none past S may be read; rows past each other slot's pos are
+    poisoned.  Fault model: one live kv block of slot 0 lost (bf16: its K
+    and V rows read as 0; int8: its V scales)."""
+    b, h, hkv, d, s, bkv = (CONTIG[k] for k in ("b", "h", "hkv", "d", "s",
+                                                 "bkv"))
+    tag = "int8" if quant else "bf16"
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
+    pos = torch.randint(128, 576, (b,), generator=gen, device="cuda")
+    pos[-1] = s + 6
+    dead = torch.arange(s, device="cuda")[None, :] > pos[:, None]
+    k, v, sc = kv_operands(
+        torch.randn(b, s, hkv, d, generator=gen, device="cuda"),
+        torch.randn(b, s, hkv, d, generator=gen, device="cuda"), dead, quant)
+    pos = pos.to(torch.int32)
+    blk0 = (pos[0].item() - 20) // bkv * bkv          # live in any window
+    if quant:
+        bad = dict(sc, v_scale=sc["v_scale"].clone())
+        bad["v_scale"][0, blk0:blk0 + bkv] = 0.0
+        kb, vb = k, v
+    else:
+        bad, kb, vb = sc, k.clone(), v.clone()
+        kb[0, blk0:blk0 + bkv], vb[0, blk0:blk0 + bkv] = 0.0, 0.0
+    worst = 0.0
+    for label in DEC_LABELS:
+        cfg = CoarseningConfig.parse(label)
+        for window in (None, 100):
+            kw = dict(degree=cfg.degree, gapped=cfg.kind == "gapped",
+                      bkv=bkv, window=window)
+            got = ops.decode_attention(q, k, v, pos, label, bkv=bkv,
+                                       window=window, **sc)
+            torch.cuda.synchronize()
+            want = ref.split_kv(q, k, v, pos, **kw, **sc)
+            fault = ref.split_kv(q, kb, vb, pos, **kw, **bad)
+            tol = dec_tol(want)
+            err = (got.float() - want.float()).abs().max().item()
+            ratio = (fault.float() - want.float()).abs().max().item() / tol
+            line = (f"contiguous decode {tag} {label:5s} window={window}: "
+                    f"max|kernel-plain| / limit {err / tol:.3f}; fault "
+                    f"model (a live kv block lost) / limit {ratio:.1f}")
+            ok = err <= tol
+            if window is None:             # the dense oracle, every row
+                oracle = ref.decode_attention(
+                    q, dequant(k, sc.get("k_scale")),
+                    dequant(v, sc.get("v_scale")), pos)
+                err_o = (got.float() - oracle.float()).abs().max().item()
+                tol_o = dec_tol(oracle)
+                line += (f"; max|kernel-dense oracle| / limit "
+                         f"{err_o / tol_o:.3f}")
+                ok = ok and err_o <= tol_o
+                err = max(err, err_o)
+            print(line, flush=True)
+            if not ok:
+                raise SystemExit(f"contiguous decode kernel {tag} {label} "
+                                 f"disagrees with its plain version")
+            if not ratio > 1:
+                raise SystemExit("the contiguous decode limit would not "
+                                 "catch a lost kv block")
+            worst = max(worst, err)
+
+    live = torch.clamp(pos.long() + 1, max=s)
+    n_live = int(live.sum().item())
+    io = n_live * hkv * 2 * (d * k.element_size() + (4 if quant else 0)) \
+        + 2 * b * h * d * 2 + b * 4
+    bms, by = bound(io, 4 * n_live * h * d)
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, pos, bkv=bkv, **sc))
+    plain_ms = time_ms(lambda: ref.split_kv(q, k, v, pos, bkv=bkv, **sc))
+    # yardstick: SDPA on the contiguous (dequantized) cache with a length
+    # mask, K/V heads expanded for GQA outside the timing
+    kx, vx = (dequant(x, sc.get(n)).bfloat16().transpose(1, 2)
+              .repeat_interleave(h // hkv, dim=1).contiguous()
+              for x, n in ((k, "k_scale"), (v, "v_scale")))
+    mask = (torch.arange(s, device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qs = q.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kx, vx, attn_mask=mask))
+    print(f"contiguous decode {tag} timing (base, B={b} H={h} Hkv={hkv} "
+          f"D={d} S={s} bkv={bkv}, live rows {n_live}): kernel {ms:.4f} ms "
+          f"| bound {bms:.4f} ms ({by}) | plain {plain_ms:.4f} ms | sdpa "
+          f"{lib_ms:.4f} ms", flush=True)
+    return {"name": "contig_decode_attention" + ("_int8" if quant else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:171",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def verify_phase(gen: torch.Generator, quant: bool) -> dict:
+    """Row 4 (`decode_attention.py:510`, bf16 or int8 pools): T = 5 rows a
+    slot at pos0 + t through a permuted block table; rows past pos0 + T
+    and unreferenced pages poisoned (row pos0 + T stays clean: it is what
+    a shifted mask would read).  Fault models: a live page of slot 0 lost
+    (bf16: its K and V rows read as 0; int8: its V scales), and row t's
+    mask shifted by one (row t sees position pos0 + t + 1), the fault that
+    would break the greedy accept rule."""
+    b, h, hkv, d, ps, npp, t = (VER[k] for k in ("b", "h", "hkv", "d", "ps",
+                                                  "npp", "t"))
+    tag = "int8" if quant else "bf16"
+    n_pages = b * npp + 5
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * npp]
+    bt = (perm + 1).reshape(b, npp).to(torch.int32)
+    pos0 = torch.randint(128, 572, (b,), generator=gen, device="cuda")
+    rows = torch.arange(npp * ps, device="cuda")
+    dead_rows = rows[None, :] > (pos0 + t)[:, None]
+    dead = torch.ones(n_pages, ps, dtype=torch.bool, device="cuda")
+    dead[bt.long()[:, rows // ps], (rows % ps).expand(b, -1)] = dead_rows
+    kp, vp, sc = kv_operands(
+        torch.randn(n_pages, ps, hkv, d, generator=gen, device="cuda"),
+        torch.randn(n_pages, ps, hkv, d, generator=gen, device="cuda"), dead,
+        quant)
+    pos0 = pos0.to(torch.int32)
+    pg0 = bt[0, (pos0[0].item() - 20) // ps].long()   # live in any window
+    if quant:
+        bad = dict(sc, v_scale=sc["v_scale"].clone())
+        bad["v_scale"][pg0] = 0.0
+        kb, vb = kp, vp
+    else:
+        bad, kb, vb = sc, kp.clone(), vp.clone()
+        kb[pg0], vb[pg0] = 0.0, 0.0
+    kg = dequant(ref.gather_pages(kp, bt), None if not quant else
+                 ref.gather_scales(sc["k_scale"], bt))
+    vg = dequant(ref.gather_pages(vp, bt), None if not quant else
+                 ref.gather_scales(sc["v_scale"], bt))
+    worst = 0.0
+    for label in DEC_LABELS:
+        cfg = CoarseningConfig.parse(label)
+        for window in (None, 100):
+            kw = dict(degree=cfg.degree, gapped=cfg.kind == "gapped",
+                      window=window)
+            got = ops.flash_attention_verify(q, kp, vp, bt, pos0, label,
+                                             window=window, **sc)
+            torch.cuda.synchronize()
+            want = ref.verify_split_kv(q, kp, vp, bt, pos0, **kw, **sc)
+            oracle = ref.verify_attention(q, kg, vg, pos0, window=window)
+            lost = ref.verify_split_kv(q, kb, vb, bt, pos0, **kw, **bad)
+            shifted = ref.verify_split_kv(q, kp, vp, bt, pos0 + 1, **kw, **sc)
+            tol, tol_o = dec_tol(want), dec_tol(oracle)
+            err = (got.float() - want.float()).abs().max().item()
+            err_o = (got.float() - oracle.float()).abs().max().item()
+            r_lost, r_shift = ((f.float() - want.float()).abs().max().item()
+                               / tol for f in (lost, shifted))
+            print(f"verify {tag} {label:5s} window={window}: max|kernel-"
+                  f"plain| / limit {err / tol:.3f}, max|kernel-gather "
+                  f"oracle| / limit {err_o / tol_o:.3f}; fault models / "
+                  f"limit: a live page lost {r_lost:.1f}, row t's mask "
+                  f"shifted by one {r_shift:.1f}", flush=True)
+            if not (err <= tol and err_o <= tol_o):
+                raise SystemExit(f"verify kernel {tag} {label} disagrees "
+                                 f"with its plain version")
+            if not (r_lost > 1 and r_shift > 1):
+                raise SystemExit("the verify limit would not catch a lost "
+                                 "page or a shifted mask")
+            worst = max(worst, err, err_o)
+
+    p0 = pos0.long()
+    n_live = int((p0 + t).sum().item())               # rows 0..pos0+T-1
+    pages = int(((p0 + t + ps - 1) // ps).sum().item())
+    io = n_live * hkv * 2 * (d * kp.element_size() + (4 if quant else 0)) \
+        + 2 * b * t * h * d * 2 + pages * 4 + b * 4
+    flops = 4 * h * d * int((t * p0 + t * (t + 1) // 2).sum().item())
+    bms, by = bound(io, flops)
+    ms = time_ms(lambda: ops.flash_attention_verify(q, kp, vp, bt, pos0,
+                                                    **sc))
+    plain_ms = time_ms(lambda: ref.verify_split_kv(q, kp, vp, bt, pos0,
+                                                   **sc))
+    # yardstick: SDPA on the pre-gathered (dequantized) views, K/V heads
+    # expanded for GQA, with the per-row boolean mask
+    kx, vx = (x.bfloat16().transpose(1, 2).repeat_interleave(
+        h // hkv, dim=1).contiguous() for x in (kg, vg))
+    mask = (torch.arange(npp * ps, device="cuda")[None, None, :]
+            <= (p0[:, None] + torch.arange(t, device="cuda"))[:, :, None]
+            )[:, None]
+    qs = q.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kx, vx, attn_mask=mask))
+    print(f"verify {tag} timing (base, B={b} T={t} H={h} Hkv={hkv} D={d} "
+          f"ps={ps}, live rows {n_live}): kernel {ms:.4f} ms | bound "
+          f"{bms:.4f} ms ({by}) | plain {plain_ms:.4f} ms | sdpa on "
+          f"pre-gathered views {lib_ms:.4f} ms", flush=True)
+    return {"name": "verify_attention" + ("_int8" if quant else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:510",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
@@ -1042,7 +1281,13 @@ def serve_phase(name: str) -> dict:
           f"{sum(a == GEN for a in agree)}/{N_REQ} requests identical; "
           f"first divergence per request {agree}", flush=True)
     decode_step_parity(cfg, params, prompts)
-    return counts
+    # the contiguous and speculative paths, from the same weights; each run
+    # counts its own launches from zero
+    totals = dict(counts)
+    for phase in (contig_serve_phase, spec_serve_phase):
+        for k, v in phase(cfg, params).items():
+            totals[k] += v
+    return totals
 
 
 # -- phase 6: serve qwen2-moe-a2.7b, bf16 and int8 (counters of every phase) --
@@ -1050,6 +1295,11 @@ def serve_phase(name: str) -> dict:
 # every wrapper's launch counter: kernel name -> (module, attribute)
 COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "paged_decode_attention_int8": (dec_mod, "int8_launches"),
+            "contig_decode_attention": (dec_mod, "contig_launches"),
+            "contig_decode_attention_int8": (dec_mod,
+                                             "contig_int8_launches"),
+            "verify_attention": (dec_mod, "verify_launches"),
+            "verify_attention_int8": (dec_mod, "verify_int8_launches"),
             "coarsened_matmul": (mm_mod, "launches"),
             "quant_matmul": (mm_mod, "q_launches"),
             "moe_ffn": (moe_mod, "launches"),
@@ -1345,6 +1595,280 @@ def moe_serve_phase() -> dict:
     return totals
 
 
+# -- phase 7: contiguous serve of qwen3-0.6b (BatchedServer), bf16 and int8 ---
+
+def contig_serve(cfg, params, prompts, kv_quant: str) -> tuple:
+    """The serve trace through `BatchedServer` on the kernel path: every
+    request completes, no NaN logits, and 28 contiguous-decode launches per
+    decode step (counted from zero around the run).  Returns (counts,
+    server)."""
+    tag = f"contiguous {kv_quant if kv_quant != 'none' else 'bf16'}"
+    server = BatchedServer(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                           chunk=CHUNK, decode_block=BLOCK,
+                           decode_backend="cuda", ffn_backend="cuda",
+                           kv_quant=kv_quant, device="cuda")
+    pending = list(prompts)
+    zero_counts()
+    t0 = time.perf_counter()
+    while pending or server.any_active:
+        while pending and server.try_admit(pending[0], GEN):
+            pending.pop(0)
+        server.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if len(server.completed) != len(prompts) \
+            or any(len(o) != GEN for o in server.completed):
+        raise SystemExit(f"{tag} serve: not every request completed")
+    if server.nan_steps:
+        raise SystemExit(f"{tag} serve: NaN logits in {server.nan_steps} "
+                         f"steps")
+    print(f"serve [{tag}]: {len(server.completed)} requests completed, no "
+          f"NaN; {server.prefill_steps} prefill chunks, "
+          f"{server.decode_steps} decode steps, {wall:.2f}s wall | prefill "
+          f"{server.prefill_tokens} tok "
+          f"{server.prefill_tokens / server.prefill_device_s:.1f} tok/s | "
+          f"decode {server.decoded_tokens} tok "
+          f"{server.decoded_tokens / server.decode_device_s:.1f} tok/s | kv "
+          f"cache {server.cache_mib / 1024:.3f} GiB (bf16 "
+          f"{server.cache_mib_dense / 1024:.3f})", flush=True)
+    path = {k: v for k, v in counts.items() if v}
+    print(f"  kernel launches on the served path: {path}", flush=True)
+    key = "contig_decode_attention" + ("_int8" if kv_quant == "int8" else "")
+    want = cfg.n_layers * server.decode_steps
+    if counts[key] != want or counts["coarsened_matmul"] < 1:
+        raise SystemExit(f"{tag}: {counts[key]} contiguous decode launches, "
+                         f"not {cfg.n_layers} per decode step ({want}), or "
+                         f"no FFN matmul launch: {path}")
+    return counts, server
+
+
+def contig_decode_step_parity(cfg, params, server) -> None:
+    """One full-width contiguous lm_decode_step for the 8 slots the serve
+    run left behind (each slot's cache holds its last request up to its
+    pos), kernel path against plain path from copies of that cache."""
+    tok = torch.as_tensor([[o[-1]] for o in server.outputs], device="cuda",
+                          dtype=torch.int32)
+    pos = torch.as_tensor(np.minimum(server.pos, MAX_LEN - 1), device="cuda")
+    logits = {}
+    for backend in ("cuda", "ref"):
+        c = dataclasses.replace(server.cfg, decode_backend=backend,
+                                ffn_backend=backend)
+        cache = {"layers": [{k: v.clone() for k, v in layer.items()}
+                            for layer in server.cache["layers"]]}
+        logits[backend], _ = M.lm_decode_step(params, cache, tok, pos, c)
+    torch.cuda.synchronize()
+    diff = (logits["cuda"] - logits["ref"]).abs().max().item()
+    scale = logits["ref"].abs().max().item()
+    tol = 0.05 * scale          # as the paged step check (phase 4)
+    print(f"contiguous lm_decode_step parity ({server.cfg.kv_quant} kv, "
+          f"full width, 8 slots): max|kernel-plain| {diff:.4e} of "
+          f"max|logit| {scale:.4e} (tol {tol:.4e})", flush=True)
+    if not (math.isfinite(diff) and diff <= tol):
+        raise SystemExit("contiguous kernel path and plain path logits "
+                         "disagree")
+
+
+def contig_serve_phase(cfg, params) -> dict:
+    prompts = trace(cfg.vocab)
+    totals = dict.fromkeys(COUNTERS, 0)
+    for kv_quant in ("none", "int8"):
+        counts, server = contig_serve(cfg, params, prompts, kv_quant)
+        for k, v in counts.items():
+            totals[k] += v
+        contig_decode_step_parity(cfg, params, server)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+# -- phase 8: speculative serve of qwen3-0.6b (SpecPagedEngine) ---------------
+
+SPEC_K, SPEC_REQ, SPEC_GEN = 4, 8, 32
+# row t of a verify against lm_decode_step at pos0 + t, both on the kernel
+# path: they differ only in summation order (T*8 against 8 rows in every
+# product, the verify kernel against the decode kernel), which the bf16
+# residual stream carries through 28 layers — the paged step check's 5% of
+# the largest |logit|
+SPEC_LIMIT = 0.05
+
+
+def spec_engine(cfg, params, num_pages, draft: str):
+    draft_cfg, draft_params = (cfg, params) if draft == "self" else (
+        draft_of(cfg), None)
+    return SpecPagedEngine(
+        cfg, params, spec_k=SPEC_K, draft_cfg=draft_cfg,
+        draft_params=draft_params,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+        slots=SLOTS, num_pages=num_pages, page_size=PAGE, max_len=MAX_LEN,
+        chunk=CHUNK, decode_backend="cuda", ffn_backend="cuda",
+        device="cuda")
+
+
+def spec_serve(cfg, params, prompts, num_pages, draft: str) -> tuple:
+    """The spec trace through the Scheduler over a SpecPagedEngine: every
+    request FINISHED, ``pool.check()``, no page leak, at least one
+    preemption, and 28 verify launches per verify step.  Returns (counts,
+    outputs)."""
+    eng = spec_engine(cfg, params, num_pages, draft)
+    sched = Scheduler(eng)
+    for p in prompts:
+        sched.submit(p, SPEC_GEN)
+    zero_counts()
+    t0 = time.perf_counter()
+    done = sched.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    eng.pool.check()
+    if eng.pool.num_live or eng.pool.num_free != eng.pool.capacity \
+            or eng.any_active:
+        raise SystemExit(f"spec serve ({draft}) leaked pages")
+    if any(r.state is not State.FINISHED or len(r.output) != SPEC_GEN
+           for r in done):
+        raise SystemExit(f"spec serve ({draft}): not every request finished")
+    npre = sum(r.preemptions for r in done)
+    print(f"serve [spec K={SPEC_K}, draft {draft}]: {len(done)} requests "
+          f"FINISHED, {npre} preemptions, no page leak; acceptance "
+          f"{eng.acceptance_rate:.3f} ({eng.accepted}/{eng.drafted}), "
+          f"{eng.spec_steps} verify steps, {eng.rescue_steps} rescue steps, "
+          f"{eng.nan_rows} NaN rows, "
+          f"{eng.decoded_tokens / eng.spec_steps:.2f} tokens per verify "
+          f"step, {wall:.2f}s wall | prefill {eng.prefill_tokens} tok "
+          f"{eng.prefill_tokens / eng.prefill_device_s:.1f} tok/s (target "
+          f"and draft) | decode {eng.decoded_tokens} tok "
+          f"{eng.decoded_tokens / eng.decode_device_s:.1f} tok/s",
+          flush=True)
+    path = {k: v for k, v in counts.items() if v}
+    print(f"  kernel launches on the served path: {path}", flush=True)
+    if npre < 1:
+        raise SystemExit(f"spec serve ({draft}): the undersized pool forced "
+                         f"no preemption")
+    want = cfg.n_layers * eng.spec_steps
+    if counts["verify_attention"] != want:
+        raise SystemExit(f"spec serve ({draft}): {counts['verify_attention']}"
+                         f" verify launches, not {cfg.n_layers} per verify "
+                         f"step ({want})")
+    outputs = [r.output for r in done]
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, outputs
+
+
+@contextlib.contextmanager
+def shifted_verify_mask():
+    """Row t of every verify kernel call sees position pos0 + t + 1."""
+    saved = dec_mod.verify_attention
+
+    def faulty(q, k, v, bt, pos0, *a, **kw):
+        return saved(q, k, v, bt, pos0 + 1, *a, **kw)
+    dec_mod.verify_attention = faulty
+    try:
+        yield
+    finally:
+        dec_mod.verify_attention = saved
+
+
+def verify_decode_exactness(cfg, params, prompts) -> None:
+    """The accept rule's premise at full width: on a shared cache (8 slots,
+    the trace's first 8 prompts cut to 64 tokens), row t of one
+    lm_verify_step over [last, d_1..d_4] against lm_decode_step at pos0 + t
+    fed the same tokens, both on the kernel path, on every slot within
+    SPEC_LIMIT of the largest |logit|; a verify whose mask is shifted by one
+    must exceed it."""
+    eng = PagedEngine(cfg, params, slots=SLOTS,
+                      num_pages=SLOTS * pages_needed(MAX_LEN, PAGE) + 1,
+                      page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
+                      decode_backend="cuda", ffn_backend="cuda",
+                      device="cuda")
+    for s, p in enumerate(prompts[:SLOTS]):
+        eng.admit(s, Request(rid=s, prompt=p[:64], gen=GEN))
+        grow = pages_needed(64 + SPEC_K + 2, PAGE) - eng.bt.num_pages(s)
+        eng.bt.append(s, eng.pool.alloc(grow))
+    rng = np.random.default_rng(SEED + 2)
+    toks = np.concatenate([eng.last[:, None], rng.integers(
+        1, cfg.vocab, (SLOTS, SPEC_K))], axis=1)
+    toks = torch.as_tensor(toks, dtype=torch.int32, device="cuda")
+    pos0 = torch.as_tensor(eng.written, device="cuda")
+    bt = torch.as_tensor(eng.bt.device(), device="cuda")
+    c = eng.cfg
+
+    def fresh():
+        return {"layers": [{k: v.clone() for k, v in layer.items()}
+                           for layer in eng.cache["layers"]]}
+    cache = fresh()
+    rows = []
+    for t in range(SPEC_K + 1):
+        lg, _ = M.lm_decode_step(params, cache, toks[:, t:t + 1], pos0 + t,
+                                 c, block_table=bt)
+        rows.append(lg)
+    dec = torch.stack(rows, dim=1)
+    ver, _ = M.lm_verify_step(params, fresh(), toks, pos0, c,
+                              block_table=bt)
+    with shifted_verify_mask():
+        bad, _ = M.lm_verify_step(params, fresh(), toks, pos0, c,
+                                  block_table=bt)
+    torch.cuda.synchronize()
+    scale = dec.abs().max().item()
+    tol = SPEC_LIMIT * scale
+    diff = (ver - dec).abs().amax(dim=(1, 2))                   # per slot
+    fault = (bad - dec).abs().max().item() / tol
+    same = (ver.argmax(-1) == dec.argmax(-1)).float().mean().item()
+    print(f"verify vs decode (full width, 8 slots x {SPEC_K + 1} rows, "
+          f"kernel path): max|verify-decode| per slot / limit "
+          f"{[round(x / tol, 3) for x in diff.tolist()]} (limit "
+          f"{tol:.4e} = {SPEC_LIMIT} of max|logit| {scale:.4e}); argmax "
+          f"agrees on {same:.3f} of rows; fault model (row t's mask shifted "
+          f"by one) / limit {fault:.2f}", flush=True)
+    if not (torch.isfinite(diff).all() and diff.max().item() <= tol):
+        raise SystemExit("verify rows disagree with decode steps")
+    if not fault > 1:
+        raise SystemExit("the verify-vs-decode limit would not catch a "
+                         "shifted mask")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_serve_phase(cfg, params) -> dict:
+    prompts = trace(cfg.vocab)[:SPEC_REQ]
+    need = sum(pages_needed(len(p) + SPEC_GEN, PAGE) for p in prompts)
+    num_pages = int(0.6 * need) + 1
+    print(f"spec pool: {num_pages} pages of {PAGE} (the {SPEC_REQ} requests "
+          f"need {need} at completion)", flush=True)
+    verify_decode_exactness(cfg, params, prompts)
+    totals = dict.fromkeys(COUNTERS, 0)
+    outs = {}
+    for draft in ("draft_of", "self"):
+        counts, outs[draft] = spec_serve(cfg, params, prompts, num_pages,
+                                         draft)
+        for k, v in counts.items():
+            totals[k] += v
+    # reported, not held: greedy tokens against the non-speculative kernel
+    # path (random weights leave near-ties that either rounding may break)
+    eng = PagedEngine(cfg, params, slots=SLOTS, num_pages=num_pages,
+                      page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
+                      decode_block=BLOCK, decode_backend="cuda",
+                      ffn_backend="cuda", device="cuda")
+    sched = Scheduler(eng)
+    for p in prompts:
+        sched.submit(p, SPEC_GEN)
+    base = [r.output for r in sched.run_until_done()]
+    for draft, out in outs.items():
+        agree = [next((i for i, (a, b) in enumerate(zip(o, r)) if a != b),
+                      SPEC_GEN) for o, r in zip(out, base)]
+        print(f"greedy tokens, spec ({draft}) vs PagedEngine kernel path: "
+              f"{sum(a == SPEC_GEN for a in agree)}/{SPEC_REQ} requests "
+              f"identical; first divergence per request {agree}",
+              flush=True)
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 # -- phase 5: train -----------------------------------------------------------
 
 TRAIN = dict(batch=4, seq=1024, lr=3e-4, remat="none", seed=SEED,
@@ -1506,7 +2030,11 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen),
                decode_int8_phase(gen), moe_phase(gen), quant_moe_phase(gen),
-               quant_matmul_phase(gen)]
+               quant_matmul_phase(gen), contig_phase(gen, quant=False),
+               contig_phase(gen, quant=True), verify_phase(gen, quant=False)]
+    # the int8-pool verify is checked and timed here but runs on no served
+    # path yet (the spec runs keep bf16 pools), so it is not in the line
+    verify_phase(gen, quant=True)
     gc.collect()
     torch.cuda.empty_cache()
     # launches: the sum over the main-path runs, each counted from zero

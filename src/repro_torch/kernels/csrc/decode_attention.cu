@@ -33,6 +33,34 @@
 // so the int8 rows are staged as they are (half the bytes of bf16) and the
 // split-and-merge structure is the bf16 kernel's.  Bound: the live rows'
 // int8 K/V bytes plus their scales.
+//
+// The contiguous-cache decode kernel and the short-q verify kernel:
+// `rows_partials_kernel` replaces two more Pallas kernels of the same
+// split-KV family: `make_kernel` (:51, pallas_call at :171), decode against
+// a contiguous (B, S, Hkv, D) cache, and `make_verify_kernel` (:380,
+// pallas_call at :510), T drafted query rows per slot through the block
+// table.  Both own C kv segments per (slot, kv head, split) as above —
+// kv blocks of `bkv` rows (contiguous: adjacent, or S/C rows apart) or
+// pages (verify) — with the same live-split skip and exact combine.  What
+// differs from the paged decode kernel:
+//
+// * R = T*G query rows a block (t-major: row r = t*G + g sits at cache
+//   position pos0 + t and carries its own causal/window mask).  T*G
+//   exceeds a handful of registers, so the online-softmax state (m, l and
+//   the tile's probabilities) lives in shared memory, one thread per row
+//   updates it, and each thread keeps only its output column of the R
+//   accumulators in registers (MAXR = 8 or 32 of them).
+// * A segment is staged in tiles of `tr` rows (a divisor of the segment
+//   and at most 32): a 128-row kv block of bf16 K and V is 64 KB, a
+//   32-row tile 16 KB, so the static 48 KB suffices at D = 128.  Tiles
+//   wholly past the deepest row (pos0 + T - 1) or left of the window are
+//   skipped, so the kernel reads only live rows' tiles, and never a row at
+//   or past S: the tiles cover [0, S) and nothing else, whatever pos an
+//   inactive slot carries.
+//
+// Bound on this card: the live K/V bytes (and, for int8, their scales) at
+// 3.35 TB/s, as for the paged kernel; verify scores each fetched tile
+// against T*G rows, still far below the tensor-core ridge.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -194,14 +222,20 @@ __global__ void paged_partials_kernel(
 }
 
 // Exact merge of the per-split partials (repro `_combine`): one block per
-// (slot, query head) row, D threads.
+// (slot, kv head, query row) of the partials, D threads.  Partial row r of
+// kv head hh is t-major (r = t*G + g) and lands at out (b, t, hh*G + g):
+// with T = 1 that is row b*H + h, the decode layout.
 __global__ void combine_kernel(const float* __restrict__ m,
                                const float* __restrict__ l,
                                const float* __restrict__ acc,
                                __nv_bfloat16* __restrict__ out, int n_splits,
-                               int d) {
-  const size_t row = blockIdx.x;                // b*H + h
+                               int d, int t, int g, int hkv) {
+  const size_t row = blockIdx.x;                // (b*Hkv + hh)*R + r
   const int tid = threadIdx.x;
+  const int rr = t * g;
+  const int r = (int)(row % rr), hh = (int)(row / rr % hkv);
+  const size_t bb = row / rr / hkv;
+  const int ti = r / g, gi = r - ti * g;
   const float* mr = m + row * n_splits;
   const float* lr = l + row * n_splits;
   float mmax = NEG;
@@ -213,7 +247,8 @@ __global__ void combine_kernel(const float* __restrict__ m,
     o += acc[(row * n_splits + s) * d + tid] * w;
   }
   if (lt == 0.f) lt = 1.f;
-  out[row * d + tid] = __float2bfloat16(o / lt);
+  out[((bb * t + ti) * hkv * g + hh * g + gi) * d + tid] =
+      __float2bfloat16(o / lt);
 }
 
 template <typename KV>
@@ -248,8 +283,233 @@ int launch_paged(const void* q, const void* k_pool, const void* v_pool,
   combine_kernel<<<b * hkv * g, d, 0, st>>>(
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(out),
-      n_splits, d);
+      n_splits, d, 1, g, hkv);
   return (int)cudaGetLastError();
+}
+
+// KV = __nv_bfloat16 or int8_t (scales non-null); PAGED: K/V are pools
+// (P, seg, Hkv, D) reached through block_table (B, nseg), else caches
+// (B, nseg*seg, Hkv, D) with slot b's rows in order.
+template <typename KV, bool PAGED, int MAXR>
+__global__ void rows_partials_kernel(
+    const __nv_bfloat16* __restrict__ q,        // (B, T, Hkv*G, D)
+    const KV* __restrict__ k, const KV* __restrict__ v,
+    const float* __restrict__ k_scale,          // rows x Hkv, or null
+    const float* __restrict__ v_scale,
+    const int* __restrict__ block_table,        // (B, nseg) when PAGED
+    const int* __restrict__ pos0,               // (B,)
+    float* __restrict__ m_out,                  // (B, Hkv, R, n_splits)
+    float* __restrict__ l_out,                  // (B, Hkv, R, n_splits)
+    float* __restrict__ acc_out,                // (B, Hkv, R, n_splits, D)
+    int n_pages, int seg, int nseg, int hkv, int g, int t, int d, int c,
+    int gapped, int window, int tr, float scale) {
+  const int si = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int n_splits = gridDim.x;
+  const int rr = t * g;                         // query rows of the block
+  const int tid = threadIdx.x;                  // blockDim.x == d
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  constexpr bool QUANT = sizeof(KV) == 1;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  KV* ks = reinterpret_cast<KV*>(smem);                          // (tr, d)
+  KV* vs = ks + tr * d;                                          // (tr, d)
+  float* qs = reinterpret_cast<float*>(vs + tr * d);             // (rr, d)
+  float* sc = qs + rr * d;                                       // (rr, tr)
+  float* ms = sc + rr * tr;                                      // (rr,)
+  float* ls = ms + rr;                                           // (rr,)
+  float* al = ls + rr;                                           // (rr,)
+  float* kss = al + rr;                                          // (tr,)
+  float* vss = kss + tr;                                         // (tr,)
+
+  const int p0 = pos0[bb];
+  const int plast = p0 + t - 1;                 // the deepest query row
+  const size_t part0 = (size_t)(bb * hkv + hh) * rr * n_splits + si;
+
+  // live-split skip on the split's fused row extent (reference :433-443)
+  int first_row, last_row;
+  if (gapped) {
+    first_row = si * seg;
+    last_row = ((c - 1) * n_splits + si) * seg + seg - 1;
+  } else {
+    first_row = si * c * seg;
+    last_row = (si * c + c - 1) * seg + seg - 1;
+  }
+  bool live = first_row <= plast;
+  if (window > 0) live = live && (last_row > p0 - window);
+  if (!live) {
+    for (int r = 0; r < rr; ++r) {
+      const size_t o = part0 + (size_t)r * n_splits;
+      if (tid == 0) {
+        m_out[o] = NEG;
+        l_out[o] = 0.f;
+      }
+      acc_out[o * d + tid] = 0.f;
+    }
+    return;
+  }
+
+  for (int r = 0; r < rr; ++r) {
+    const int ti = r / g, gi = r - ti * g;
+    qs[r * d + tid] = __bfloat162float(
+        q[(((size_t)bb * t + ti) * hkv * g + hh * g + gi) * d + tid]);
+  }
+  if (tid < rr) {
+    ms[tid] = NEG;
+    ls[tid] = 0.f;
+  }
+  float acc[MAXR];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
+
+  const int vec_per_row = d * (int)sizeof(KV) / 16;   // 16-byte vectors
+  const int n_vec = tr * vec_per_row;
+  for (int j = 0; j < c; ++j) {
+    const int lseg = gapped ? j * n_splits + si : si * c + j;
+    int pp = 0;
+    if (PAGED) {
+      pp = block_table[(size_t)bb * nseg + lseg];
+      pp = pp < 0 ? 0 : (pp >= n_pages ? n_pages - 1 : pp);
+    }
+    for (int r0 = 0; r0 < seg; r0 += tr) {
+      const int row0 = lseg * seg + r0;         // logical row of the tile
+      if (row0 > plast) break;                  // and every later tile
+      if (window > 0 && row0 + tr - 1 <= p0 - window) continue;
+      const size_t rbase = PAGED ? (size_t)pp * seg + r0
+                                 : (size_t)bb * nseg * seg + row0;
+      __syncthreads();                          // previous tile consumed
+      for (int i = tid; i < n_vec; i += blockDim.x) {
+        const int r = i / vec_per_row, cc = i - r * vec_per_row;
+        const size_t off = ((rbase + r) * hkv + hh) * d +
+                           cc * (16 / sizeof(KV));
+        reinterpret_cast<uint4*>(ks)[i] =
+            *reinterpret_cast<const uint4*>(k + off);
+        reinterpret_cast<uint4*>(vs)[i] =
+            *reinterpret_cast<const uint4*>(v + off);
+      }
+      if (QUANT && tid < tr) {
+        const size_t so = (rbase + tid) * hkv + hh;
+        kss[tid] = k_scale[so];
+        vss[tid] = v_scale[so];
+      }
+      __syncthreads();
+
+      // scores: one warp per (query row, kv row), lanes over D
+      for (int idx = warp; idx < rr * tr; idx += nwarps) {
+        const int r = idx / tr, kr = idx - r * tr;
+        float s = 0.f;
+        for (int e = lane; e < d; e += 32)
+          s += qs[r * d + e] * kv_float(ks[kr * d + e]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) {
+          const int col = row0 + kr, rp = p0 + r / g;
+          const bool ok = col <= rp && (window <= 0 || col > rp - window);
+          if (QUANT) s *= kss[kr];              // the K scale, after the dot
+          sc[r * tr + kr] = ok ? s * scale : NEG;
+        }
+      }
+      __syncthreads();
+
+      // online softmax, one thread per query row: the new max, the
+      // rescale alpha, and the tile's probabilities (times the V scale)
+      if (tid < rr) {
+        const int r = tid;
+        const float mo = ms[r];
+        float mx = mo;
+        for (int kr = 0; kr < tr; ++kr) mx = fmaxf(mx, sc[r * tr + kr]);
+        float lsum = 0.f;
+        for (int kr = 0; kr < tr; ++kr) {
+          const float s = sc[r * tr + kr];
+          const float pr = s <= NEG * 0.5f ? 0.f : expf(s - mx);
+          lsum += pr;
+          sc[r * tr + kr] = QUANT ? pr * vss[kr] : pr;
+        }
+        const float alpha = expf(mo - mx);
+        ls[r] = ls[r] * alpha + lsum;
+        ms[r] = mx;
+        al[r] = alpha;
+      }
+      __syncthreads();
+
+      // thread tid owns output column tid of every query row
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r)
+        if (r < rr) acc[r] *= al[r];
+      for (int kr = 0; kr < tr; ++kr) {
+        const float vv = kv_float(vs[kr * d + tid]);
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r)
+          if (r < rr) acc[r] += sc[r * tr + kr] * vv;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    if (r >= rr) continue;
+    const size_t o = part0 + (size_t)r * n_splits;
+    if (tid == 0) {
+      m_out[o] = ms[r];
+      l_out[o] = ls[r];
+    }
+    acc_out[o * d + tid] = acc[r];
+  }
+}
+
+template <typename KV, bool PAGED, int MAXR>
+int launch_rows(const void* q, const void* k, const void* v,
+                const void* k_scale, const void* v_scale,
+                const void* block_table, const void* pos0, void* m, void* l,
+                void* acc, void* out, int b, int hkv, int g, int t, int d,
+                int n_pages, int seg, int nseg, int c, int gapped, int window,
+                int tr, float scale, cudaStream_t st) {
+  const int rr = t * g;
+  const int n_splits = nseg / c;
+  const size_t smem = (size_t)2 * tr * d * sizeof(KV) +
+                      ((size_t)rr * d + (size_t)rr * tr + 3 * rr + 2 * tr) *
+                          sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rows_partials_kernel<KV, PAGED, MAXR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  rows_partials_kernel<KV, PAGED, MAXR>
+      <<<dim3(n_splits, hkv, b), d, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale),
+          static_cast<const int*>(block_table), static_cast<const int*>(pos0),
+          static_cast<float*>(m), static_cast<float*>(l),
+          static_cast<float*>(acc), n_pages, seg, nseg, hkv, g, t, d, c,
+          gapped, window, tr, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  combine_kernel<<<b * hkv * rr, d, 0, st>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(out),
+      n_splits, d, t, g, hkv);
+  return (int)cudaGetLastError();
+}
+
+template <typename KV, bool PAGED>
+int launch_rows_r(const void* q, const void* k, const void* v,
+                  const void* k_scale, const void* v_scale,
+                  const void* block_table, const void* pos0, void* m,
+                  void* l, void* acc, void* out, int b, int hkv, int g,
+                  int t, int d, int n_pages, int seg, int nseg, int c,
+                  int gapped, int window, int tr, float scale,
+                  cudaStream_t st) {
+  if (t * g <= 8)
+    return launch_rows<KV, PAGED, 8>(q, k, v, k_scale, v_scale, block_table,
+                                     pos0, m, l, acc, out, b, hkv, g, t, d,
+                                     n_pages, seg, nseg, c, gapped, window,
+                                     tr, scale, st);
+  return launch_rows<KV, PAGED, 32>(q, k, v, k_scale, v_scale, block_table,
+                                    pos0, m, l, acc, out, b, hkv, g, t, d,
+                                    n_pages, seg, nseg, c, gapped, window,
+                                    tr, scale, st);
 }
 
 }  // namespace
@@ -276,4 +536,37 @@ extern "C" int paged_decode_attention_int8(
       q, k_pool, v_pool, k_scale, v_scale, block_table, pos, m, l, acc, out,
       b, hkv, g, d, n_pages, ps, npp, c, gapped, window, scale,
       reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The contiguous-cache decode kernel (paged = 0, T = 1, seg = bkv, nseg =
+// S / bkv, block_table and n_pages unused) and the short-q verify kernel
+// (paged = 1, seg = page size, nseg = pages a slot), bf16 caches or, with
+// quant = 1, int8 caches with f32 scales (rows x Hkv).  pos0 is (B,).
+extern "C" int split_kv_attention(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* block_table, const void* pos0, void* m,
+    void* l, void* acc, void* out, int quant, int paged, int b, int hkv,
+    int g, int t, int d, int n_pages, int seg, int nseg, int c, int gapped,
+    int window, int tr, float scale, void* stream) {
+  if (g < 1 || t < 1 || t * g > 32 || d % 32 || d > 1024 || c < 1 ||
+      nseg % c || tr < 1 || tr > 32 || seg % tr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (quant)
+    return paged ? launch_rows_r<int8_t, true>(
+                       q, k, v, k_scale, v_scale, block_table, pos0, m, l,
+                       acc, out, b, hkv, g, t, d, n_pages, seg, nseg, c,
+                       gapped, window, tr, scale, st)
+                 : launch_rows_r<int8_t, false>(
+                       q, k, v, k_scale, v_scale, block_table, pos0, m, l,
+                       acc, out, b, hkv, g, t, d, n_pages, seg, nseg, c,
+                       gapped, window, tr, scale, st);
+  return paged ? launch_rows_r<__nv_bfloat16, true>(
+                     q, k, v, nullptr, nullptr, block_table, pos0, m, l, acc,
+                     out, b, hkv, g, t, d, n_pages, seg, nseg, c, gapped,
+                     window, tr, scale, st)
+               : launch_rows_r<__nv_bfloat16, false>(
+                     q, k, v, nullptr, nullptr, block_table, pos0, m, l, acc,
+                     out, b, hkv, g, t, d, n_pages, seg, nseg, c, gapped,
+                     window, tr, scale, st);
 }

@@ -80,6 +80,38 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
         k_scale=k_scale, v_scale=v_scale)
 
 
+def decode_attention(q, k_cache, v_cache, pos,
+                     cfg: CoarseningConfig | str = BASE, *, bkv: int = 128,
+                     window: int | None = None, scale: float | None = None,
+                     k_scale=None, v_scale=None):
+    """Split-KV decode attention on a contiguous cache
+    (`repro/kernels/ops.py:424`).  q: (B,1,H,D); caches: (B,S,Hkv,D); pos:
+    (B,) int32 -> (B,1,H,D).  The coarsening axis is the kv-block axis
+    (each split owns cfg.degree blocks of ``bkv`` rows).  ``k_scale`` /
+    ``v_scale`` (B,S,Hkv) f32 mark int8 caches."""
+    _check_no_grad("ops.decode_attention", q, k_cache, v_cache)
+    return _decode.decode_attention(q, k_cache, v_cache, pos, cfg, bkv=bkv,
+                                    window=window, scale=scale,
+                                    k_scale=k_scale, v_scale=v_scale)
+
+
+def flash_attention_verify(q, k_pool, v_pool, block_table, pos0,
+                           cfg: CoarseningConfig | str = BASE, *,
+                           window: int | None = None,
+                           scale: float | None = None,
+                           k_scale=None, v_scale=None):
+    """Batched-verify attention through a per-slot block table
+    (`repro/kernels/ops.py:534`): q (B,T,H,D), row t at cache position
+    ``pos0[b] + t``; pools (P,page_size,Hkv,D); block_table (B,npp) int32;
+    pos0 (B,) int32 -> (B,T,H,D).  The coarsening axis is the logical-page
+    axis; ``k_scale`` / ``v_scale`` (P,page_size,Hkv) f32 mark int8
+    pools."""
+    _check_no_grad("ops.flash_attention_verify", q, k_pool, v_pool)
+    return _decode.verify_attention(q, k_pool, v_pool, block_table, pos0,
+                                    cfg, window=window, scale=scale,
+                                    k_scale=k_scale, v_scale=v_scale)
+
+
 class _FlashAttention(torch.autograd.Function):
     """`repro/kernels/ops.py:183-241` `_flash_vjp_fn`: the forward runs the
     residual kernel and saves (q, k, v, o, m, l); the backward takes the

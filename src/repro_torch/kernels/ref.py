@@ -107,20 +107,25 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
     return decode_attention(q, k, v, pos, window=window, scale=scale)
 
 
-def paged_split_kv(q, k_pool, v_pool, block_table, pos, *, degree=1,
-                   gapped=False, window=None, scale=None, k_scale=None,
-                   v_scale=None):
-    """The paged split-KV kernel's own arithmetic, in one shot per split
-    (`repro/kernels/decode_attention.py:208` `make_paged_kernel`): split
-    ``si`` owns logical pages ``si*C + j`` (consecutive) or
-    ``j*(npp/C) + si`` (gapped), resolved through the block table; a split
-    wholly past ``pos`` (or left of the window) yields the empty partial;
-    rows past ``pos`` are masked; `combine` merges the splits.  int8 pools
-    (``k_scale`` / ``v_scale`` (P,ps,Hkv), the ``kv_bits=8`` branch) are
-    dequantized row by row as the panes are read (:295-301).
-    q: (B,1,H,D); pools: (P,ps,Hkv,D); block_table: (B,npp); pos: (B,)
-    -> (B,1,H,D) in q's dtype."""
-    b, _, h, d = q.shape
+def verify_split_kv(q, k_pool, v_pool, block_table, pos0, *, degree=1,
+                    gapped=False, window=None, scale=None, k_scale=None,
+                    v_scale=None):
+    """The paged split-KV kernels' own arithmetic, in one shot per split:
+    the short-q verify kernel (`repro/kernels/decode_attention.py:380`
+    `make_verify_kernel`) and, with T = 1, the paged decode kernel (:208
+    `make_paged_kernel`).  Split ``si`` owns logical pages ``si*C + j``
+    (consecutive) or ``j*(npp/C) + si`` (gapped), resolved through the
+    block table; row t of a slot sits at cache position ``pos0 + t`` with
+    its own causal / window mask; a split is live when its first row is
+    at or before ``pos0 + T - 1`` and (with a window) its last row is past
+    ``pos0 - window`` (:433-443), else it yields the empty partial;
+    `combine` merges the splits.  The T*G rows of a kv head are flattened
+    t-major, as `_qview` does (:528-538).  int8 pools (``k_scale`` /
+    ``v_scale`` (P,ps,Hkv), the ``kv_bits=8`` branch) are dequantized row
+    by row as the panes are read (:295-301).
+    q: (B,T,H,D); pools: (P,ps,Hkv,D); block_table: (B,npp); pos0: (B,)
+    -> (B,T,H,D) in q's dtype."""
+    b, t, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     npp = block_table.shape[1]
     c, g = degree, h // hkv
@@ -141,26 +146,79 @@ def paged_split_kv(q, k_pool, v_pool, block_table, pos, *, degree=1,
 
     cols = (lp[..., None] * ps + torch.arange(ps, device=dev)
             ).reshape(n_splits, c * ps)
-    pos = pos.to(torch.int64)[:, None, None]                   # (B,1,1)
-    mask = cols[None] <= pos                                   # (B,n,C*ps)
+    pos0 = pos0.to(torch.int64)
+    tpos = (pos0[:, None] + torch.arange(t, device=dev))[:, :, None, None]
+    mask = cols[None, None] <= tpos                            # (B,T,n,C*ps)
     if window is not None:
-        mask = mask & (cols[None] > pos - window)
+        mask = mask & (cols[None, None] > tpos - window)
     first, last = cols.amin(dim=1), cols.amax(dim=1)           # (n,)
-    live = first[None] <= pos[:, :, 0]                         # (B,n)
+    live = first[None] <= pos0[:, None] + (t - 1)              # (B,n)
     if window is not None:
-        live = live & (last[None] > pos[:, :, 0] - window)
-    mask = mask & live[..., None]
-    qg = q.reshape(b, hkv, g, d).float()
-    s = torch.einsum("bhgd,bhnkd->bhgnk", qg, panes(k_pool, k_scale)) \
+        live = live & (last[None] > pos0[:, None] - window)
+    mask = mask & live[:, None, :, None]
+    mk = mask[:, None, :, None].expand(b, 1, t, g, n_splits, c * ps) \
+        .reshape(b, 1, t * g, n_splits, c * ps)               # t-major rows
+    qg = q.reshape(b, t, hkv, g, d).transpose(1, 2).reshape(
+        b, hkv, t * g, d).float()
+    s = torch.einsum("bhrd,bhnkd->bhrnk", qg, panes(k_pool, k_scale)) \
         * scale
-    mk = mask[:, None, None]                                   # (B,1,1,n,C*ps)
     s = torch.where(mk, s, torch.full_like(s, NEG))
-    m = s.amax(dim=-1)                                         # (B,Hkv,G,n)
+    m = s.amax(dim=-1)                                         # (B,Hkv,R,n)
     p = torch.exp(s - m[..., None]) * mk
     l = p.sum(dim=-1)
-    acc = torch.einsum("bhgnk,bhnkd->bhgnd", p, panes(v_pool, v_scale))
-    out = combine(m, l, acc)                                   # (B,Hkv,G,D)
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    acc = torch.einsum("bhrnk,bhnkd->bhrnd", p, panes(v_pool, v_scale))
+    out = combine(m, l, acc)                                   # (B,Hkv,R,D)
+    return out.reshape(b, hkv, t, g, d).transpose(1, 2).reshape(
+        b, t, h, d).to(q.dtype)
+
+
+def split_kv(q, k_cache, v_cache, pos, *, degree=1, gapped=False, bkv=128,
+             window=None, scale=None, k_scale=None, v_scale=None):
+    """The contiguous split-KV kernel's arithmetic
+    (`repro/kernels/decode_attention.py:51` `make_kernel`): split ``si``
+    owns C kv blocks of ``bkv`` rows, ``si*C + j`` (consecutive) or
+    ``j*(S/(C*bkv)) + si`` (gapped, S/C rows apart), with the same
+    live-split skip, masks and `combine` as the paged kernel.  That is the
+    paged arithmetic on the cache viewed as pages of ``bkv`` rows, slot b
+    owning pages ``b*S/bkv ...`` in order, which is how it is computed.
+    int8 caches carry (B,S,Hkv) f32 ``k_scale`` / ``v_scale``.
+    q: (B,1,H,D); caches: (B,S,Hkv,D); pos: (B,) -> (B,1,H,D)."""
+    b, s, hkv, d = k_cache.shape
+    if s % (degree * bkv):
+        raise ValueError(f"cache len {s} not tileable by degree*bkv="
+                         f"{degree * bkv}")
+    npp = s // bkv
+    table = torch.arange(b * npp, device=q.device).reshape(b, npp)
+
+    def pages(x):
+        return None if x is None else x.reshape(b * npp, bkv, *x.shape[2:])
+    return verify_split_kv(q, pages(k_cache), pages(v_cache), table, pos,
+                           degree=degree, gapped=gapped, window=window,
+                           scale=scale, k_scale=pages(k_scale),
+                           v_scale=pages(v_scale))
+
+
+def verify_attention(q, k_cache, v_cache, pos0, *, window=None, scale=None):
+    """Dense batched-verify oracle in float32 (`repro/kernels/ref.py:127`):
+    row t of slot b sits at cache position ``pos0[b] + t`` and attends to
+    every cache row at or before it.  q: (B,T,H,D); caches: (B,S,Hkv,D)
+    -> (B,T,H,D) in q's dtype; T = 1 is `decode_attention`."""
+    b, t, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, t, hkv, g, d).float()
+    logits = torch.einsum("bthgd,bshd->bthgs", qg, k_cache.float()) * scale
+    kpos = torch.arange(s, device=q.device)
+    rows = pos0.to(torch.int64)[:, None] + torch.arange(t, device=q.device)
+    mask = kpos[None, None, :] <= rows[:, :, None]             # (B,T,S)
+    if window is not None:
+        mask = mask & (kpos[None, None, :] > rows[:, :, None] - window)
+    logits = torch.where(mask[:, :, None, None, :], logits,
+                         torch.full_like(logits, NEG))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bthgs,bshd->bthgd", p, v_cache.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
 
 
 def combine(m, l, acc):

@@ -1,21 +1,36 @@
 """The attention + (FFN | MoE) residual block: the whole-sequence block of
-training and the paged serving path's blocks.
+training and the serving paths' blocks (contiguous and paged caches, and
+the speculative verify pass).
 
 Mirrors, from `repro/models/blocks.py`:
 
 * `attn_block` (:44-69) — one block over a whole sequence (training);
+* `attn_cache_init` (:167) — a contiguous (B, S, Hkv, hd) K and V cache
+  per layer (int8 plus (B, S, Hkv) f32 scales under
+  ``cfg.kv_quant="int8"``);
+* `attn_block_decode` (:72) / `attn_block_prefill` (:113) — one decode
+  step / one prefill chunk of a block on the contiguous cache;
 * `attn_cache_init_paged` (:185) — one global (P, page_size, Hkv, hd) K and
   V pool per layer (int8 pools plus (P, page_size, Hkv) f32 scale pools
   under ``cfg.kv_quant="int8"``);
 * `_paged_rows` (:202) — physical (page, row) of logical cache rows;
 * `attn_block_decode_paged` (:211) — one decode step of a block;
-* `attn_block_prefill_paged` (:260) — one prefill chunk of a block.
+* `attn_block_prefill_paged` (:260) — one prefill chunk of a block;
+* `attn_block_verify_paged` (:310) — T drafted rows of a block in one
+  pass (speculative decoding).
 
-The reference updates the pools functionally (``cache["k"].at[page,
-row].set(...)`` returns a new pool).  Here both block functions write the
-new K/V rows INTO the pools in place (``pool[page, row] = rows``) and
-return the same dict, so a serving step never copies a pool.  int8 pools
-are quantized on append (`quantize_kv`, per row and kv head).
+The reference updates the caches functionally (``cache["k"].at[page,
+row].set(...)`` returns a new pool).  Here every block function writes the
+new K/V rows INTO the caches in place and returns the same dict, so a
+serving step never copies a cache.  int8 caches are quantized on append
+(`quantize_kv`, per row and kv head).
+
+JAX drops a scatter to a row past the cache; PyTorch raises on the CPU
+and faults on the card.  The contiguous blocks therefore write exactly the
+rows the reference commits: rows below S, and in prefill only the slots
+``mask`` selects (the reference writes every slot, then keeps the masked
+ones' caches).  A row that must stay as it was gets its own old value
+back, so the write stays one in-place scatter with no host sync.
 
 The serving blocks run MoE layers (`layers.moe`, with the reference's
 capacities); the whole-sequence training block does not yet (MoE training
@@ -58,6 +73,93 @@ def _write_rows(cache, page, row, k, v):
         cache["v_scale"][page, row] = vs
     cache["k"][page, row] = k.to(cache["k"].dtype)
     cache["v"][page, row] = v.to(cache["v"].dtype)
+
+
+def attn_cache_init(cfg: ModelConfig, b: int, s_max: int,
+                    dtype=torch.bfloat16, device=None):
+    """Zeroed contiguous K and V caches, (b, s_max, Hkv, hd) each, in
+    ``dtype`` — or, under ``cfg.kv_quant="int8"``, int8 caches plus zeroed
+    f32 ``k_scale`` / ``v_scale`` (b, s_max, Hkv)."""
+    shape = (b, s_max, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_contig(cache, pos, k, v, write=None):
+    """Write K/V rows (B,T,Hkv,hd) at cache rows ``pos`` (B,T) in place
+    where ``write`` (broadcast to (B,T); default everywhere) holds and the
+    row is below S, quantizing on append for int8 caches.  The T rows of a slot are distinct modulo S
+    (T <= S), so every other row is sent to its own position modulo S and
+    given back the value it had."""
+    s = cache["k"].shape[1]
+    idx = pos.long() % s
+    keep = pos < s if write is None else write & (pos < s)
+    bidx = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    new = {"k": k, "v": v}
+    if "k_scale" in cache:
+        (new["k"], new["k_scale"]), (new["v"], new["v_scale"]) = (
+            quantize_kv(k.float()), quantize_kv(v.float()))
+    for name, rows in new.items():
+        leaf = cache[name]
+        sel = keep.reshape(keep.shape + (1,) * (rows.dim() - 2))
+        leaf[bidx, idx] = torch.where(sel, rows.to(leaf.dtype),
+                                      leaf[bidx, idx])
+
+
+def attn_block_decode(p, x, cfg: ModelConfig, cache, *, kind: str, pos):
+    """One decode step on the contiguous cache.  x: (B,1,d); cache
+    {'k','v'[,'k_scale','v_scale']} (B,S,kv,hd); pos: (B,).  The new K/V
+    row is written in place (quantized on append for int8), except for a
+    slot whose ``pos`` is at or past S (a finished slot riding along in a
+    decode block), whose write the reference drops; attention dispatches
+    through `layers.decode_attention` with the config's decode knobs.
+    Returns (x, cache) with ``cache`` the same dict."""
+    window = cfg.window if kind == ATTN_LOCAL else None
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None])
+    _write_contig(cache, pos[:, None], k, v)
+    o = L.decode_attention(q, cache["k"], cache["v"], pos, window=window,
+                           backend=cfg.decode_backend,
+                           cfg=cfg.decode_attn_cfg, bkv=cfg.decode_bkv,
+                           k_scale=cache.get("k_scale"),
+                           v_scale=cache.get("v_scale"))
+    x = x + o.reshape(x.shape[0], 1, -1) @ asdense(p["attn"]["wo"], x.dtype)
+    return _ffn_out(p, x, cfg, decode_moe_capacity(cfg, x.shape[0])), cache
+
+
+def attn_block_prefill(p, x, cfg: ModelConfig, cache, *, kind: str, pos0,
+                       mask=None):
+    """One prefill chunk on the contiguous cache.  x: (B,T,d); pos0: (B,)
+    chunk start rows; mask: (B,) bool, the slots whose rows
+    [pos0, pos0+T) are written (default all).  Attention runs against the
+    whole cache with global row positions through `layers.flash_attention`,
+    which takes `mea_attention` here, as in the reference: the chunk rows
+    sit at ragged positions inside a padded cache.  int8 caches are
+    quantized on append and dequantized (to x's dtype) for attention.  MoE
+    layers run with capacity B*T.  Returns (x, cache)."""
+    b, t, _ = x.shape
+    window = cfg.window if kind == ATTN_LOCAL else None
+    pos = pos0.long()[:, None] + torch.arange(t, device=x.device)[None]
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos)
+    _write_contig(cache, pos, k, v, None if mask is None else mask[:, None])
+    ka, va = cache["k"], cache["v"]
+    if "k_scale" in cache:
+        ka = dequantize_kv(ka, cache["k_scale"]).to(x.dtype)
+        va = dequantize_kv(va, cache["v_scale"]).to(x.dtype)
+    o = L.flash_attention(q, ka, va, causal=True, window=window, q_pos=pos,
+                          backend=cfg.attn_backend, cfg=cfg.attn_cfg,
+                          bwd_cfg=cfg.attn_bwd_cfg, bq=cfg.attn_bq,
+                          bkv=cfg.attn_bkv)
+    o = o.reshape(b, t, -1) @ asdense(p["attn"]["wo"], x.dtype)
+    return _ffn_out(p, x + o, cfg, moe_capacity=b * t), cache
 
 
 def _paged_rows(block_table, pos, page_size):
@@ -184,5 +286,35 @@ def attn_block_prefill_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
         va = dequantize_kv(va, cache["v_scale"][bt].reshape(b, npp * ps, -1)
                            ).to(x.dtype)
     o = L.mea_attention(q, ka, va, causal=True, window=window, q_pos=pos)
+    o = o.reshape(b, t, -1) @ asdense(p["attn"]["wo"], x.dtype)
+    return _ffn_out(p, x + o, cfg, moe_capacity=b * t), cache
+
+
+def attn_block_verify_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
+                            pos0, block_table, valid_len=None):
+    """T drafted rows per slot in one pass (speculative decoding).  x:
+    (B,T,d); pos0: (B,); row t sits at ``pos0 + t``.  The rows scatter
+    through the table into the pools in place (quantized on append for
+    int8); ``valid_len`` (B,) marks rows ``t >= valid_len[b]`` as batch
+    padding, whose writes are routed to the NULL page (past the slot's
+    pages the clamped lookup would alias a live page).  Attention scores
+    all rows in one short-q pass (`layers.verify_attention`); MoE layers
+    run with capacity B*T.  Returns (x, cache) with the same dict."""
+    b, t, _ = x.shape
+    ps = cache["k"].shape[1]
+    window = cfg.window if kind == ATTN_LOCAL else None
+    pos = pos0.long()[:, None] + torch.arange(t, device=x.device)[None]
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos)
+    page, row = _paged_rows(block_table, pos, ps)
+    if valid_len is not None:
+        live = torch.arange(t, device=x.device)[None] < valid_len[:, None]
+        page = torch.where(live, page, torch.zeros_like(page))
+    _write_rows(cache, page, row, k, v)
+    o = L.verify_attention(q, cache["k"], cache["v"], block_table, pos0,
+                           window=window, backend=cfg.decode_backend,
+                           cfg=cfg.decode_attn_cfg,
+                           k_scale=cache.get("k_scale"),
+                           v_scale=cache.get("v_scale"))
     o = o.reshape(b, t, -1) @ asdense(p["attn"]["wo"], x.dtype)
     return _ffn_out(p, x + o, cfg, moe_capacity=b * t), cache

@@ -1,6 +1,7 @@
 """Model building blocks: RMSNorm, RoPE, the GQA q/k/v projection, chunked
 memory-efficient attention, the training/prefill flash-attention dispatch,
-decode attention (dense and paged dispatch, bf16 or int8 pools), the SwiGLU
+decode attention (contiguous and paged dispatch, bf16 or int8 caches),
+speculative verify attention (paged dispatch), the SwiGLU
 FFN (dense or quantized weights) and the top-k MoE layer.
 
 Mirrors `repro.models.layers` function for function, on PyTorch tensors.
@@ -203,13 +204,32 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
                          k_len=k_len, scale=scale)
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):
-    """Dense single-token attention against a contiguous cache — the plain
-    path of `repro/models/layers.py:397` (backend "ref"): q is scaled and
-    cast to the cache dtype, scores are float32, probabilities are cast to
-    V's dtype before the PV product.  q: (B,1,H,D); caches (B,S,Hkv,D)."""
+def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None,
+                     backend: str = "ref", cfg="auto", bkv: int = 128,
+                     k_scale=None, v_scale=None):
+    """Single-token attention against a contiguous cache
+    (`repro/models/layers.py:397-456`).  q: (B,1,H,D); caches
+    (B,S,Hkv,D); pos: (B,).  A kernel backend dispatches the contiguous
+    split-KV kernel (kv blocks of min(bkv, S) rows) when ``h % hkv == 0``
+    and S tiles by the block and by block * degree; everything else takes
+    the dense path: q is scaled and cast to the cache dtype, scores are
+    float32, probabilities are cast to V's dtype before the PV product.
+    ``k_scale`` / ``v_scale`` (B,S,Hkv) mark an int8 cache: the kernel
+    takes it as it is; the dense path dequantizes it to float32 first."""
     b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if _uses_kernel(backend):
+        blk = min(bkv, s)
+        if h % hkv == 0 and s % blk == 0:
+            rcfg = resolve(cfg)
+            if s % (blk * rcfg.degree) == 0:
+                return ops.decode_attention(q, k_cache, v_cache, pos, rcfg,
+                                            bkv=blk, window=window,
+                                            scale=scale, k_scale=k_scale,
+                                            v_scale=v_scale)
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale)
+        v_cache = dequantize_kv(v_cache, v_scale)
     g = h // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = (q.reshape(b, hkv, g, d) * torch.tensor(scale, dtype=q.dtype)
@@ -256,6 +276,51 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
                                                          block_table))
     return decode_attention(q, k_view, v_view, pos, window=window,
                             scale=scale)
+
+
+def verify_attention(q, k_pool, v_pool, block_table, pos0, *, window=None,
+                     scale=None, backend: str = "ref", cfg="auto",
+                     k_scale=None, v_scale=None):
+    """Batched-verify attention against a PAGED cache
+    (`repro/models/layers.py:505-566`).  q: (B,T,H,D), row t at cache
+    position ``pos0[b] + t``; pools, block_table and scales as in
+    `paged_decode_attention`.  A kernel backend dispatches the short-q
+    verify kernel when the per-slot page count tiles by the degree; the
+    plain path gathers the table into contiguous views and runs the decode
+    dense contraction with one more row axis, row for row what
+    `decode_attention` computes at ``pos0 + t``."""
+    b, t, h, d = q.shape
+    _, ps, hkv, _ = k_pool.shape
+    npp = block_table.shape[1]
+    if _uses_kernel(backend) and h % hkv == 0:
+        rcfg = resolve(cfg)
+        if npp % rcfg.degree == 0:
+            return ops.flash_attention_verify(
+                q, k_pool, v_pool, block_table, pos0, rcfg, window=window,
+                scale=scale, k_scale=k_scale, v_scale=v_scale)
+    k_view = ref.gather_pages(k_pool, block_table)
+    v_view = ref.gather_pages(v_pool, block_table)
+    if k_scale is not None:
+        k_view = dequantize_kv(k_view, ref.gather_scales(k_scale,
+                                                         block_table))
+        v_view = dequantize_kv(v_view, ref.gather_scales(v_scale,
+                                                         block_table))
+    s, g = npp * ps, h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = (q.reshape(b, t, hkv, g, d) * torch.tensor(scale, dtype=q.dtype)
+          ).to(k_view.dtype)
+    logits = torch.einsum("bthgd,bshd->bthgs", qg.float(), k_view.float())
+    kpos = torch.arange(s, device=q.device)
+    rows = pos0.to(torch.int64)[:, None] + torch.arange(t, device=q.device)
+    mask = kpos[None, None, :] <= rows[:, :, None]             # (B,T,S)
+    if window is not None:
+        mask = mask & (kpos[None, None, :] > rows[:, :, None] - window)
+    logits = torch.where(mask[:, :, None, None, :], logits,
+                         torch.full_like(logits, NEG))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bthgs,bshd->bthgd", p.to(v_view.dtype).float(),
+                       v_view.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
 
 
 def ffn(p, x, *, backend: str = "ref", cfg="auto"):

@@ -1,10 +1,13 @@
 """The decoder LM: init, the whole-sequence forward and the chunked loss of
-training, and the paged cache, chunked prefill and decode step of serving.
+training, and the caches, chunked prefill, decode step and speculative
+verify step of serving.
 
 Mirrors, from `repro/models/model.py`: `lm_init` (:105), `_embed` (:150),
 `_run_stack` (:158-200), `lm_apply` (:202-230), `_head` (:293),
-`lm_loss` (:299-343), `lm_init_cache_paged` (:376), `lm_decode_step`
-(:408, paged) and `lm_prefill` (:586, paged).
+`lm_loss` (:299-343), `lm_init_cache` (:346), `lm_init_cache_paged`
+(:376), `lm_decode_step` (:408), `lm_verify_step` (:462) and `lm_prefill`
+(:586), each for the contiguous and the paged cache where the reference
+has both.
 
 Differences from the reference, all of layout and not of arithmetic:
 
@@ -12,9 +15,9 @@ Differences from the reference, all of layout and not of arithmetic:
   reference stacks layers of one pattern position on a leading axis and
   `lax.scan`s over it, which is what `_period` (:27) splits out); the scan
   becomes a Python loop over ``cfg.layer_kinds()``;
-* the paged cache is ``{"layers": [{"k", "v"}, ...]}`` and `lm_prefill` /
-  `lm_decode_step` write its pools IN PLACE (the reference returns a new
-  cache); both still return the cache for symmetry;
+* a cache is ``{"layers": [{"k", "v"}, ...]}`` and `lm_prefill`,
+  `lm_decode_step` and `lm_verify_step` write it IN PLACE (the reference
+  returns a new cache); they still return the cache for symmetry;
 * attention stacks (global and local layers) with dense-FFN or MoE
   layers are ported; recurrent, SSM and enc-dec models raise
   NotImplementedError, and so does MoE training (`lm_apply` / `lm_loss`).
@@ -128,10 +131,10 @@ def _head(params, cfg: ModelConfig):
 
 
 def _logits(params, x, cfg: ModelConfig):
-    """Final norm + head on (B, d) rows -> float32 (B, vocab)."""
+    """Final norm + head on (..., d) rows -> float32 (..., vocab)."""
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (x @ _head(params, cfg).to(x.dtype)).float()
-    return logits[:, : cfg.vocab]                 # drop pad-vocab ids
+    return logits[..., : cfg.vocab]               # drop pad-vocab ids
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, pos, remat: str = "none",
@@ -212,6 +215,17 @@ def lm_loss(params, batch, cfg: ModelConfig, *, remat: str = "none"):
     return ce, {"ce": ce, "tokens": cnt}
 
 
+def lm_init_cache(cfg: ModelConfig, b: int, s_max: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """Contiguous decode cache: a (b, s_max, Hkv, hd) K and V cache per
+    attention layer (int8 with f32 (b, s_max, Hkv) scales under
+    ``cfg.kv_quant="int8"``).  Runs on ``cuda`` unless ``device="cpu"``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return {"layers": [B.attn_cache_init(cfg, b, s_max, dtype, dev)
+                       for _ in range(cfg.n_layers)]}
+
+
 def lm_init_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
                         dtype=torch.bfloat16, device=None) -> dict:
     """Paged decode cache: one global K and V pool (num_pages, page_size,
@@ -227,38 +241,70 @@ def lm_init_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def lm_decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
-                   block_table, write_mask=None):
-    """tokens: (B,1) int; pos: (B,) int32; block_table: (B,npp) int32 ->
-    (logits (B, vocab) float32, cache).  Each layer writes its new K/V row
-    into the cache's pools in place; ``write_mask`` (B,) bool routes a
-    slot's writes to the NULL page."""
+                   block_table=None, write_mask=None):
+    """tokens: (B,1) int; pos: (B,) int32 -> (logits (B, vocab) float32,
+    cache).  Each layer writes its new K/V row into the cache in place.
+    ``block_table`` (B,npp) int32 selects the paged layout; without it the
+    cache is contiguous, and a slot at or past the cache length writes
+    nothing.  ``write_mask`` (B,) bool (paged only) routes a slot's writes
+    to the NULL page."""
     x = _embed(params, tokens, cfg)
     for p, c, kind in zip(params["layers"], cache["layers"],
                           cfg.layer_kinds()):
-        x, _ = B.attn_block_decode_paged(p, x, cfg, c, kind=kind, pos=pos,
-                                         block_table=block_table,
-                                         write_mask=write_mask)
+        if block_table is None:
+            x, _ = B.attn_block_decode(p, x, cfg, c, kind=kind, pos=pos)
+        else:
+            x, _ = B.attn_block_decode_paged(p, x, cfg, c, kind=kind,
+                                             pos=pos,
+                                             block_table=block_table,
+                                             write_mask=write_mask)
     return _logits(params, x[:, 0], cfg), cache
 
 
-def lm_prefill(params, tokens, cfg: ModelConfig, *, cache, block_table,
-               pos0=None):
-    """Chunked prefill: push a (B, T) token chunk through the stack, writing
-    attention K/V rows [pos0, pos0+T) through the block table into the
-    cache's pools in place.  Call repeatedly with increasing ``pos0`` to
-    ingest a long prompt in chunks; composes with `lm_decode_step`.
+def lm_verify_step(params, cache, tokens, pos0, cfg: ModelConfig, *,
+                   block_table, valid_len=None):
+    """Score T drafted tokens per slot in one pass (speculative decoding).
+    tokens: (B,T) int, token t at cache position ``pos0[b] + t``;
+    block_table: (B,npp) int32 (paged cache only); valid_len: (B,) — rows
+    ``t >= valid_len[b]`` are batch padding (their writes go to the NULL
+    page, their logits are garbage).  Returns (logits (B,T,vocab) float32
+    — row t scores position pos0+t+1 — and the cache, rows [pos0, pos0+T)
+    written in place).  Row t equals what `lm_decode_step` at pos0+t
+    computes from the same cache prefix, up to rounding: the exactness
+    property the greedy accept rule builds on."""
+    x = _embed(params, tokens, cfg)
+    for p, c, kind in zip(params["layers"], cache["layers"],
+                          cfg.layer_kinds()):
+        x, _ = B.attn_block_verify_paged(p, x, cfg, c, kind=kind, pos0=pos0,
+                                         block_table=block_table,
+                                         valid_len=valid_len)
+    return _logits(params, x, cfg), cache
 
-    Write protection of slots not being prefilled comes from the table (the
-    caller nulls their rows).  The reference's ``mask`` argument guards
-    per-slot recurrent/SSM state, which attention-only stacks do not have,
-    so the port has none.  Returns (last-token logits (B, vocab) float32,
-    cache)."""
+
+def lm_prefill(params, tokens, cfg: ModelConfig, *, cache, block_table=None,
+               pos0=None, mask=None):
+    """Chunked prefill: push a (B, T) token chunk through the stack, writing
+    attention K/V rows [pos0, pos0+T) into the cache in place.  Call
+    repeatedly with increasing ``pos0`` to ingest a long prompt in chunks;
+    composes with `lm_decode_step`.
+
+    ``block_table`` selects the paged layout, where the table is the write
+    protection (the caller nulls the rows of slots not being prefilled) and
+    ``mask`` is not used, as in the reference.  On the contiguous cache
+    ``mask`` (B,) bool selects the slots whose rows are written (default
+    all); the other slots' caches stay as they were.  Returns (last-token
+    logits (B, vocab) float32, cache)."""
     b, t = tokens.shape
     if pos0 is None:
         pos0 = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
     x = _embed(params, tokens, cfg)
     for p, c, kind in zip(params["layers"], cache["layers"],
                           cfg.layer_kinds()):
-        x, _ = B.attn_block_prefill_paged(p, x, cfg, c, kind=kind, pos0=pos0,
-                                          block_table=block_table)
+        if block_table is None:
+            x, _ = B.attn_block_prefill(p, x, cfg, c, kind=kind, pos0=pos0,
+                                        mask=mask)
+        else:
+            x, _ = B.attn_block_prefill_paged(p, x, cfg, c, kind=kind,
+                                              pos0=pos0,
+                                              block_table=block_table)
     return _logits(params, x[:, -1], cfg), cache

@@ -33,6 +33,11 @@ pools are written in place by `lm_prefill` / `lm_decode_step`
   dense and the quantized sizes are kept (``weight_mib_dense`` /
   ``weight_mib``, ``cache_mib_dense`` / ``cache_mib``).
 
+* **Admission accounting** (:551-570): `_step_rows` and `_growth_bound`
+  count the pages the next decode step may allocate; the speculative
+  engine (`serve.spec`) exposes them to the scheduler as
+  `step_growth_bound`.
+
 Not ported: host-swap ``suspend`` / ``resume`` (their absence makes the
 scheduler take the recompute path on preemption), shared prefixes
 (`register_prefix` and `drop_prefix` raise NotImplementedError) and the
@@ -306,6 +311,28 @@ class PagedEngine:
             self.written[s] += n
             self.remaining[s] -= n
         return out
+
+    # -- admission accounting -----------------------------------------------
+
+    def _step_rows(self) -> int:
+        """Worst-case cache rows one decode step appends per slot.  The
+        speculative engine overrides this (K+1 rows a verify step) and
+        exposes `_growth_bound` to the scheduler as `step_growth_bound`."""
+        return self.decode_block
+
+    def _growth_bound(self, req=None) -> int:
+        """Worst-case pages the NEXT decode step may allocate across the
+        running slots — plus, when ``req`` is given, the pages admitting it
+        would take (its prompt) and its own first step's growth."""
+        n, ps = self._step_rows(), self.page_size
+        total = 0
+        for s in range(self.slots):
+            if self.active[s]:
+                total += max(0, pages_needed(int(self.written[s]) + n, ps)
+                             - self.bt.num_pages(s))
+        if req is not None:
+            total += pages_needed(len(req.prompt) + n, ps)
+        return total
 
     # -- release ------------------------------------------------------------
 
