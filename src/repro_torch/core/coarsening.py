@@ -12,11 +12,19 @@ one thread block owns:
   load units).
 
 ``replication`` and ``vector_width`` keep their meaning in the label; the
-matmul kernel reads ``vector_width`` (it widens the output tile's columns).
+matmul kernel reads ``vector_width`` (it widens the output tile's columns),
+and the paper's streaming and stencil kernels read both (V-wide vector
+loads; an (R, G/R) grid).
+
+The stream and row plans below (`plan_stream`, `plan_rows`) are the
+reference's, field for field, with the element-to-program maps the
+microbenchmark kernels are held against (`stream_owners`, `row_owners`).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 KIND_NONE = "none"
 KIND_CONSECUTIVE = "consecutive"
@@ -97,3 +105,121 @@ def resolve(cfg) -> CoarseningConfig:
     if cfg == "auto":
         return BASE
     return CoarseningConfig.parse(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Stream and row plans (`repro/core/coarsening.py:116-303`), copied field for
+# field.  They hold the element-to-program map that is the whole content of
+# the paper's consecutive/gapped distinction.
+# ---------------------------------------------------------------------------
+
+# default 1-D streaming block (the reference's 8 x 128 f32 tile)
+DEFAULT_BLOCK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Grid plan of a coarsened 1-D stream of N elements.  ``block`` is the
+    block widened by the vector width; program i owns a ``(degree, block)``
+    tile of the ``view_shape`` view: rows ``[(i*C + k)*B, +B)`` when
+    consecutive, ``[k*G*B + i*B, +B)`` when gapped, for k < C."""
+
+    n: int
+    block: int
+    cfg: CoarseningConfig
+    grid: int
+    view_shape: tuple
+    block_shape: tuple
+    dmas_per_operand: int
+    dma_elems: int
+    contiguous: bool
+
+    @property
+    def tile_shape(self) -> tuple:
+        return (self.cfg.degree, self.block * self.cfg.vector_width)
+
+
+def plan_stream(n: int, cfg: CoarseningConfig,
+                block: int = DEFAULT_BLOCK) -> StreamPlan:
+    """The reference's `plan_stream`: the vector width widens the block, and
+    N must tile by degree * block."""
+    block = block * cfg.vector_width
+    c = cfg.degree
+    if n % (block * c) != 0:
+        raise ValueError(f"N={n} not divisible by degree*block={c * block}")
+    grid = n // (block * c)
+    if cfg.kind in (KIND_NONE, KIND_CONSECUTIVE):
+        return StreamPlan(n=n, block=block, cfg=cfg, grid=grid,
+                          view_shape=(grid, c, block),
+                          block_shape=(1, c, block), dmas_per_operand=1,
+                          dma_elems=c * block, contiguous=True)
+    return StreamPlan(n=n, block=block, cfg=cfg, grid=grid,
+                      view_shape=(c, grid, block), block_shape=(c, 1, block),
+                      dmas_per_operand=c, dma_elems=block, contiguous=False)
+
+
+def replicated(plan) -> bool:
+    """Whether the launch grid is split ``(R, G/R)`` (`flat_pid`, :250):
+    only when the replication R divides the grid."""
+    r = plan.cfg.replication
+    return r > 1 and plan.grid % r == 0
+
+
+def flat_pid(plan, outer: int, inner: int) -> int:
+    """The replication-aware flat program index of grid position
+    ``(outer, inner)``: ``outer * (G/R) + inner`` on an (R, G/R) grid, the
+    plain index ``outer`` on a 1-D one."""
+    if replicated(plan):
+        return outer * (plan.grid // plan.cfg.replication) + inner
+    return outer
+
+
+def stream_owners(plan: StreamPlan, device=None) -> torch.Tensor:
+    """(N,) int64: the program that owns each element of the stream."""
+    e = torch.arange(plan.n, device=device)
+    if plan.contiguous:
+        return e // (plan.cfg.degree * plan.block)
+    return (e % (plan.grid * plan.block)) // plan.block
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    rows: int
+    block_rows: int
+    cfg: CoarseningConfig
+    grid: int
+    fused_rows: int             # rows handled per program
+    stride_blocks: int          # distance (in blocks) between fused blocks
+    dmas_per_operand: int
+    contiguous: bool
+
+
+def plan_rows(rows: int, cfg: CoarseningConfig, block_rows: int) -> RowPlan:
+    c = cfg.degree
+    if rows % (block_rows * c) != 0:
+        raise ValueError(f"rows={rows} not divisible by degree*block="
+                         f"{c * block_rows}")
+    grid = rows // (block_rows * c)
+    if cfg.kind in (KIND_NONE, KIND_CONSECUTIVE):
+        return RowPlan(rows, block_rows, cfg, grid, fused_rows=c * block_rows,
+                       stride_blocks=1, dmas_per_operand=1, contiguous=True)
+    return RowPlan(rows, block_rows, cfg, grid, fused_rows=c * block_rows,
+                   stride_blocks=grid, dmas_per_operand=c, contiguous=False)
+
+
+def row_starts(plan: RowPlan, i: int) -> list:
+    """Starting row (in units of block_rows) of each fused block of
+    program i."""
+    c = plan.cfg.degree
+    if plan.contiguous:
+        return [i * c + k for k in range(c)]
+    return [i + k * plan.grid for k in range(c)]
+
+
+def row_owners(plan: RowPlan, device=None) -> torch.Tensor:
+    """(rows,) int64: the program that owns each row, from `row_starts`."""
+    owner = torch.empty(plan.rows, dtype=torch.int64, device=device)
+    for i in range(plan.grid):
+        for s in row_starts(plan, i):
+            owner[s * plan.block_rows:(s + 1) * plan.block_rows] = i
+    return owner

@@ -22,16 +22,19 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "matmul", "flash_attention", "moe_ffn",
-           "quant_matmul")
+           "quant_matmul", "stream", "stencil", "chunk_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, ints as c_int
 SIGNATURES = {
     "decode_attention": {
@@ -53,6 +56,16 @@ SIGNATURES = {
     },
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    },
+    "stream": {
+        "ew_stream_f32": [_P, _I, _P, _L] + [_I] * 8 + [_P],
+        "gather_stream_f32": [_P, _P, _I, _P, _L] + [_I] * 7 + [_P],
+    },
+    "stencil": {
+        "stencil5_f32": [_P] * 2 + [_I] * 8 + [_P],
+    },
+    "chunk_scan": {
+        "dp_scan_f32": [_P] * 2 + [_I] * 3 + [_P],
     },
 }
 
@@ -138,6 +151,26 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (``const void* const*``);
+    the caller keeps the tensors alive across the call."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def check_f32_cuda(what: str, tensors) -> None:
+    """Raise unless every tensor is contiguous, 16-byte aligned float32 on
+    one CUDA device (the streaming kernels' vector loads need that)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} operands must share one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{what} kernel takes float32")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError(f"{what} kernel takes contiguous, 16-byte aligned "
+                         f"operands")
 
 
 def check(rc: int, what: str) -> None:

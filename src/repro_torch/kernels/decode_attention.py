@@ -51,6 +51,25 @@ verify_launches = 0                # verify, bf16 pools
 verify_int8_launches = 0           # verify, int8 pools
 
 
+def paged_takes(g: int, d: int, ps: int, elem: int) -> bool:
+    """Whether the paged decode kernel takes ``g`` query heads a kv head,
+    head dim ``d`` and pages of ``ps`` rows of ``elem``-byte values (1: an
+    int8 pool); the layer dispatch sends any other geometry to the plain
+    path."""
+    smem = 2 * ps * d * elem + g * d * 4 + g * ps * 4 + 2 * ps * 4
+    return (g <= MAX_GROUP and d % 32 == 0 and d <= 1024
+            and not (elem == 1 and ps > d) and smem <= MAX_SMEM)
+
+
+def rows_takes(t: int, g: int, d: int, seg: int, elem: int) -> bool:
+    """Whether the rows kernel (contiguous decode, T = 1; verify) takes
+    ``t * g`` query rows a kv head, head dim ``d`` and kv segments of
+    ``seg`` rows (a page or a kv block) of ``elem``-byte values."""
+    tr, rr = math.gcd(seg, TILE_ROWS), t * g
+    smem = 2 * tr * d * elem + 4 * (rr * d + rr * tr + 3 * rr + 2 * tr)
+    return rr <= MAX_ROWS and d % 32 == 0 and d <= 1024 and smem <= MAX_SMEM
+
+
 def _scales(k_scale, v_scale, shape):
     """Whether int8 scales are given, checking both are, at ``shape``."""
     quant = k_scale is not None or v_scale is not None
@@ -118,15 +137,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     if not all(t.is_contiguous() for t in [q] + operands):
         raise ValueError("paged decode kernel takes contiguous operands")
     g = h // hkv
-    if g > MAX_GROUP or d % 32 or d > 1024 or (quant and ps > d):
+    if not paged_takes(g, d, ps, k_pool.element_size()):
         raise ValueError(f"paged decode kernel takes G <= {MAX_GROUP}, D a "
                          f"multiple of 32 up to 1024 (and, for int8 pools, "
-                         f"page rows <= D), got G={g}, D={d}, ps={ps}")
-    smem = (2 * ps * d * k_pool.element_size() + g * d * 4 + g * ps * 4
-            + 2 * ps * 4)
-    if smem > MAX_SMEM:
-        raise ValueError(f"page of {ps} rows x {d} needs {smem} B of shared "
-                         f"memory, more than {MAX_SMEM}")
+                         f"page rows <= D) and a page that fits in shared "
+                         f"memory ({MAX_SMEM} B), got G={g}, D={d}, ps={ps}")
     n_splits = npp // c
     m = torch.empty((b, hkv, g, n_splits), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
@@ -180,17 +195,13 @@ def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
         raise ValueError(f"{what} kernel takes contiguous, 16-byte aligned "
                          f"operands")
     g = h // hkv
-    if t * g > MAX_ROWS or d % 32 or d > 1024:
+    if not rows_takes(t, g, d, seg, k.element_size()):
         raise ValueError(f"{what} kernel takes T*G <= {MAX_ROWS} query rows "
-                         f"a kv head and D a multiple of 32 up to 1024, got "
-                         f"T={t}, G={g}, D={d}")
+                         f"a kv head, D a multiple of 32 up to 1024 and a "
+                         f"tile that fits in shared memory ({MAX_SMEM} B), "
+                         f"got T={t}, G={g}, D={d}")
     tr = math.gcd(seg, TILE_ROWS)
     rr = t * g
-    smem = 2 * tr * d * k.element_size() + 4 * (rr * d + rr * tr + 3 * rr
-                                                 + 2 * tr)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{what}: {rr} query rows x {d} need {smem} B of "
-                         f"shared memory, more than {MAX_SMEM}")
     n_splits = nseg // c
     m = torch.empty((b, hkv, rr, n_splits), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)

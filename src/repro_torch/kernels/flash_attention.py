@@ -57,6 +57,16 @@ def _geometry(q, k, cfg: CoarseningConfig, bq, bkv, causal, window, *,
                     causal=causal, window=window, kv_axis=kv_axis)
 
 
+def takes(d: int, degree: int, bq: int, bkv: int, *, kv_axis: bool) -> bool:
+    """Whether the kernels hold head dim ``d`` and a program of ``degree``
+    blocks of ``bq`` q rows (``bkv`` kv rows for the dK/dV pass,
+    ``kv_axis``); the layer dispatch sends any other geometry to the plain
+    path."""
+    rows = degree * (bkv if kv_axis else bq)
+    return (d in HEAD_DIMS and rows in PROGRAM_ROWS and bq % 32 == 0
+            and bkv % (16 if kv_axis else 64) == 0)
+
+
 def _launchable(tensors, cfg: CoarseningConfig, d, bq, bkv, *,
                 kv_axis: bool) -> torch.device:
     """What the CUDA kernels take; raises on anything else."""
@@ -79,8 +89,7 @@ def _launchable(tensors, cfg: CoarseningConfig, d, bq, bkv, *,
         raise ValueError("flash shapes: v must match k, do must match q, "
                          "and m, l, delta be (B,H,Sq)")
     rows = cfg.degree * (bkv if kv_axis else bq)
-    if d not in HEAD_DIMS or rows not in PROGRAM_ROWS \
-            or bq % 32 or bkv % (16 if kv_axis else 64):
+    if not takes(d, cfg.degree, bq, bkv, kv_axis=kv_axis):
         raise ValueError(
             f"flash kernel holds head dims {HEAD_DIMS}, programs of "
             f"{PROGRAM_ROWS} rows, bq % 32 == 0 and bkv % "

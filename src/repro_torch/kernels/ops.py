@@ -17,10 +17,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.coarsening import BASE, CoarseningConfig, resolve
+from repro_torch.kernels import chunk_scan as _scan
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import ew_stream as _ew
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gather_stream as _gather
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_ffn as _moe
+from repro_torch.kernels import stencil as _stencil
 
 
 def _check_no_grad(name: str, *tensors) -> None:
@@ -32,6 +36,37 @@ def _check_no_grad(name: str, *tensors) -> None:
                            f"torch.no_grad() or on tensors that do not "
                            f"require grad (the trainer's FFN takes the "
                            f"plain product, ffn_backend='ref')")
+
+
+def ew_stream(inputs, cfg: CoarseningConfig | str = BASE, *, ai: int = 6,
+              variant: str = "base", block: int = 1024):
+    """The paper's Fig. 6 streaming kernel (`repro/kernels/ops.py:85`):
+    ``len(inputs)`` (N,) f32 streams -> (N,) f32 through a chain of
+    ``ai * (len(inputs) + 1)`` ops under a divergence ``variant``."""
+    _check_no_grad("ops.ew_stream", *inputs)
+    return _ew.ew_stream(inputs, cfg, ai=ai, variant=variant, block=block)
+
+
+def gather_stream(idx, tables, cfg: CoarseningConfig | str = BASE, *,
+                  ai: int = 6, block: int = 1024):
+    """``out[i] = chain(t0[idx[i]], ...)`` (`repro/kernels/ops.py:101`):
+    idx (N,) int32, tables (T,) f32 -> (N,) f32."""
+    _check_no_grad("ops.gather_stream", *tables)
+    return _gather.gather_stream(idx, tables, cfg, ai=ai, block=block)
+
+
+def stencil5(x, cfg: CoarseningConfig | str = BASE, *, block_rows: int = 8):
+    """5-point edge-padded stencil (`repro/kernels/ops.py:166`): (rows,
+    cols) f32 -> (rows, cols) f32, coarsened over row blocks."""
+    _check_no_grad("ops.stencil5", x)
+    return _stencil.stencil5(x, cfg, block_rows=block_rows)
+
+
+def dp_scan(cost, cfg: CoarseningConfig | str = BASE):
+    """Pathfinder DP min-scan (`repro/kernels/ops.py:177`): (rows, cols)
+    f32 -> (rows, cols) f32; gapped coarsening raises ``ValueError``."""
+    _check_no_grad("ops.dp_scan", cost)
+    return _scan.dp_scan(cost, cfg)
 
 
 def matmul(a, b, cfg: CoarseningConfig | str = BASE):

@@ -338,3 +338,127 @@ def flash_bwd_dkv(q, k, v, do, m, l, delta, *, degree=1, gapped=False,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     return (dk.reshape(b, hkv, h // hkv, sk, d).sum(dim=2),
             dv.reshape(b, hkv, h // hkv, sk, d).sum(dim=2))
+
+
+# -- the paper's microbenchmarks (`repro/kernels/ew_stream.py:37-104`,
+#    `repro/kernels/ref.py:19-72`), in the reference's order of operations --
+
+VARIANTS = ("base", "if_id", "if_in", "for_const_if_id", "for_in_if_in",
+            "div2", "div4")
+FOR_CONST_TRIPS = 5
+FOR_IN_MAX_TRIPS = 8
+
+
+def _arith_chain(regs: list, n_arith: int) -> torch.Tensor:
+    """The Fig. 6 body: ``n_arith`` ops, each +, - or the mean of the
+    accumulator and the next register (products by 0.5 only, so exact)."""
+    acc = regs[0]
+    n = len(regs)
+    for t in range(n_arith):
+        r = regs[(t + 1) % n]
+        m = t % 3
+        if m == 0:
+            acc = acc + r
+        elif m == 1:
+            acc = acc - r
+        else:
+            acc = acc * 0.5 + r * 0.5
+    return acc
+
+
+def _bucket(x: torch.Tensor, scale: float, mod: int) -> torch.Tensor:
+    """``floor(|x| * scale) as int32 % mod``: the data-dependent predicates."""
+    return torch.floor(torch.abs(x) * scale).to(torch.int32) % mod
+
+
+def _global_ids(plan, i: int) -> torch.Tensor:
+    """Global element index of each (k, j) element of program i's tile."""
+    c, b, g = plan.cfg.degree, plan.block, plan.grid
+    k = torch.arange(c)[:, None]
+    j = torch.arange(b)[None, :]
+    if plan.contiguous:
+        return (i * c + k) * b + j
+    return k * (g * b) + i * b + j
+
+
+def _variant_compute(variant: str, regs: list, gids: torch.Tensor,
+                     n_arith: int) -> torch.Tensor:
+    """The divergence variant around the arithmetic chain."""
+    if variant == "base":
+        return _arith_chain(regs, n_arith)
+    if variant == "if_id":
+        taken = _arith_chain(regs, n_arith)
+        return torch.where(gids % 2 == 0, taken, regs[0])
+    if variant == "if_in":
+        taken = _arith_chain(regs, n_arith)
+        return torch.where(_bucket(regs[-1], 16.0, 2) == 0, taken, regs[0])
+    if variant == "for_const_if_id":
+        acc = regs[0]
+        for _ in range(FOR_CONST_TRIPS):
+            taken = _arith_chain([acc] + regs[1:],
+                                 max(1, n_arith // FOR_CONST_TRIPS))
+            acc = torch.where(gids % 2 == 0, taken, acc)
+        return acc
+    if variant == "for_in_if_in":
+        bound = _bucket(regs[-1], 8.0, FOR_IN_MAX_TRIPS)
+        pred_in = _bucket(regs[-2], 16.0, 2) == 0
+        acc = regs[0]
+        for t in range(FOR_IN_MAX_TRIPS):
+            taken = _arith_chain([acc] + regs[1:],
+                                 max(1, n_arith // FOR_IN_MAX_TRIPS))
+            acc = torch.where((t < bound) & pred_in, taken, acc)
+        return acc
+    if variant in ("div2", "div4"):
+        deg = 2 if variant == "div2" else 4
+        sel = _bucket(regs[-1], 16.0, deg)
+        per_path = max(1, n_arith)
+        out = _arith_chain(regs, per_path)
+        for p in range(1, deg):
+            rot = p % len(regs)
+            alt = _arith_chain(regs[rot:] + regs[:rot], per_path)
+            out = torch.where(sel == p, alt, out)
+        return out
+    raise ValueError(f"unknown variant {variant!r}")
+
+
+def ew_stream(inputs, *, ai: int, variant: str = "base") -> torch.Tensor:
+    """The streaming kernel's function (`repro/kernels/ref.py:19`): whole
+    array, no tiling; element i's id is i."""
+    n = inputs[0].shape[0]
+    n_arith = ai * (len(inputs) + 1)
+    regs = [x.reshape(1, n) for x in inputs]
+    gids = torch.arange(n, device=inputs[0].device).reshape(1, n)
+    return _variant_compute(variant, regs, gids, n_arith).reshape(n)
+
+
+def gather_stream(tables, idx, *, ai: int) -> torch.Tensor:
+    """``out[i] = chain(t0[idx[i]], ...)`` (`repro/kernels/ref.py:32`)."""
+    regs = [t[idx.long()] for t in tables]
+    return _arith_chain(regs, ai * (len(tables) + 1))
+
+
+STENCIL_COEF = (0.5, 0.125, 0.125, 0.125, 0.125)  # centre, n, s, w, e
+
+
+def stencil5(x: torch.Tensor, coef: tuple = STENCIL_COEF) -> torch.Tensor:
+    """5-point stencil with edge padding (`repro/kernels/ref.py:52`; the
+    Pallas kernel's shifted copies, `stencil.py:23-26`, are the same rows),
+    summed left to right as both."""
+    c0, cn, cs, cw, ce = coef
+    xp = torch.cat([x[:1], x, x[-1:]], dim=0)
+    xp = torch.cat([xp[:, :1], xp, xp[:, -1:]], dim=1)
+    return (c0 * x + cn * xp[:-2, 1:-1] + cs * xp[2:, 1:-1]
+            + cw * xp[1:-1, :-2] + ce * xp[1:-1, 2:])
+
+
+def dp_scan(cost: torch.Tensor) -> torch.Tensor:
+    """Pathfinder DP (`repro/kernels/ref.py:61`): row t = cost[t] +
+    min(row t-1 shifted -1, 0, +1), edges clamped; row 0 = cost[0]."""
+    out = torch.empty_like(cost)
+    prev = out[0] = cost[0]
+    for t in range(1, cost.shape[0]):
+        left = torch.cat([prev[:1], prev[:-1]])
+        right = torch.cat([prev[1:], prev[-1:]])
+        out[t] = cost[t] + torch.minimum(prev, torch.minimum(left, right))
+        prev = out[t]
+    return out

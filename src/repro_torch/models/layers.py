@@ -21,12 +21,55 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.coarsening import resolve
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtypes import QTensor, asdense, dequantize_kv
 
 NEG = -1e30
 BACKENDS = ("ref", "cuda")
+
+# Dispatches of CPU tensors sent to the plain path because the port's
+# kernel does not hold a geometry that the reference's kernel takes (the
+# `*_kernel_takes` rules below), counted per call: flash head dims other
+# than 64 / 128, verify with T*G > 32 query rows a kv head, paged decode
+# with G > 8.  On the card such a geometry raises NotImplementedError
+# (`_not_held`): the plain path never stands in for a kernel there.
+flash_plain_routes = 0
+decode_plain_routes = 0
+paged_plain_routes = 0
+verify_plain_routes = 0
+
+
+def _not_held(x: torch.Tensor, what: str) -> None:
+    """Raise on a device tensor whose geometry the port's kernel does
+    not hold yet; a CPU tensor goes on to the plain path."""
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            f"{what}: the port's kernel does not hold this geometry yet")
+
+
+def flash_kernel_takes(d: int, bq: int, bkv: int, cfg, bwd_cfg) -> bool:
+    """Whether the flash kernels hold head dim ``d`` with programs of
+    ``cfg`` x ``bq`` q rows (forward, dQ) and ``bwd_cfg`` x ``bkv`` kv
+    rows (dK/dV)."""
+    return (_flash.takes(d, cfg.degree, bq, bkv, kv_axis=False)
+            and _flash.takes(d, bwd_cfg.degree, bq, bkv, kv_axis=True))
+
+
+def paged_kernel_takes(h: int, hkv: int, d: int, ps: int, elem: int) -> bool:
+    """Whether the paged decode kernel holds G = h/hkv query heads a kv
+    head, head dim ``d`` and pages of ``ps`` rows of ``elem`` bytes."""
+    return _decode.paged_takes(h // hkv, d, ps, elem)
+
+
+def rows_kernel_takes(t: int, h: int, hkv: int, d: int, seg: int,
+                      elem: int) -> bool:
+    """Whether the rows kernel (contiguous decode at T = 1, verify at T
+    rows) holds T*G query rows a kv head over kv segments of ``seg``
+    rows."""
+    return _decode.rows_takes(t, h // hkv, d, seg, elem)
 
 
 def _uses_kernel(backend: str) -> bool:
@@ -162,13 +205,18 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
     ``k_len``; ``h % hkv == 0``; Sq and Sk tile by bq / bkv (each capped at
     the sequence) and by the resolved degrees; causal or window masking
     needs Sq == Sk and ``pos_trivial`` (q row i IS global row i).
-    Everything else takes `mea_attention`, as in the reference.
+    Everything else takes `mea_attention`, as in the reference.  A
+    geometry the port's kernels do not hold (`flash_kernel_takes`: head
+    dims 64 and 128, programs of 64-256 rows) raises NotImplementedError
+    on the card and takes `mea_attention` on CPU tensors, counted in
+    ``flash_plain_routes``.
 
     Not ported: the block-sparse branch (:323-346, windowed layers with
     ``sparse != "off"``) and the global-stride branch (:348-360).  Where
     the reference would take either, this raises NotImplementedError; it
     never answers with the dense kernel instead.
     """
+    global flash_plain_routes
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     kernel = _uses_kernel(backend)
@@ -191,8 +239,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
             ok = ok and sq == sk and pos_trivial
         if ok:
             rcfg, rbwd = resolve(cfg), resolve(bwd_cfg)
-            if sq % (blk_q * rcfg.degree) == 0 \
-                    and sk % (blk_k * rbwd.degree) == 0:
+            tiles = sq % (blk_q * rcfg.degree) == 0 \
+                and sk % (blk_k * rbwd.degree) == 0
+            if tiles and not flash_kernel_takes(d, blk_q, blk_k, rcfg, rbwd):
+                _not_held(q, f"flash attention at head dim {d}, programs of "
+                          f"{rcfg.degree}x{blk_q} / {rbwd.degree}x{blk_k} "
+                          "rows")
+                flash_plain_routes += 1
+            elif tiles:
                 o = ops.flash_attention(
                     q.transpose(1, 2).contiguous(),
                     k.transpose(1, 2).contiguous(),
@@ -211,18 +265,27 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None,
     (`repro/models/layers.py:397-456`).  q: (B,1,H,D); caches
     (B,S,Hkv,D); pos: (B,).  A kernel backend dispatches the contiguous
     split-KV kernel (kv blocks of min(bkv, S) rows) when ``h % hkv == 0``
-    and S tiles by the block and by block * degree; everything else takes
-    the dense path: q is scaled and cast to the cache dtype, scores are
-    float32, probabilities are cast to V's dtype before the PV product.
+    and S tiles by the block and by block * degree (a geometry the kernel
+    does not hold, `rows_kernel_takes`, raises NotImplementedError on the
+    card and takes the dense path on CPU tensors, counted in
+    ``decode_plain_routes``); everything else takes the dense path: q is
+    scaled and cast to the cache dtype, scores are float32, probabilities
+    are cast to V's dtype before the PV product.
     ``k_scale`` / ``v_scale`` (B,S,Hkv) mark an int8 cache: the kernel
     takes it as it is; the dense path dequantizes it to float32 first."""
+    global decode_plain_routes
     b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if _uses_kernel(backend):
         blk = min(bkv, s)
         if h % hkv == 0 and s % blk == 0:
             rcfg = resolve(cfg)
-            if s % (blk * rcfg.degree) == 0:
+            if s % (blk * rcfg.degree) == 0 and not rows_kernel_takes(
+                    1, h, hkv, d, blk, k_cache.element_size()):
+                _not_held(q, f"contiguous decode with G={h // hkv} query "
+                          f"heads a kv head at head dim {d}")
+                decode_plain_routes += 1
+            elif s % (blk * rcfg.degree) == 0:
                 return ops.decode_attention(q, k_cache, v_cache, pos, rcfg,
                                             bkv=blk, window=window,
                                             scale=scale, k_scale=k_scale,
@@ -254,15 +317,24 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
     """Single-token attention against a PAGED cache
     (`repro/models/layers.py:457-504`).  A kernel backend dispatches the
     block-table split-KV kernel when the per-slot page count tiles by the
-    coarsening degree; everything else gathers the table into contiguous
-    per-slot views and takes the dense plain path.  ``k_scale`` /
+    coarsening degree (a geometry the kernel does not hold,
+    `paged_kernel_takes`: G > 8, raises NotImplementedError on the card
+    and takes the plain path on CPU tensors, counted in
+    ``paged_plain_routes``); everything else gathers the table into
+    contiguous per-slot views and takes the dense plain path.  ``k_scale`` /
     ``v_scale`` (P,ps,Hkv) mark int8 pools: the kernel takes them as they
     are; the plain path dequantizes the gathered views to float32 first."""
+    global paged_plain_routes
     h, hkv = q.shape[2], k_pool.shape[2]
     npp = block_table.shape[1]
     if _uses_kernel(backend) and h % hkv == 0:
         rcfg = resolve(cfg)
-        if npp % rcfg.degree == 0:
+        if npp % rcfg.degree == 0 and not paged_kernel_takes(
+                h, hkv, q.shape[3], k_pool.shape[1], k_pool.element_size()):
+            _not_held(q, f"paged decode with G={h // hkv} query heads a kv "
+                      f"head at head dim {q.shape[3]}")
+            paged_plain_routes += 1
+        elif npp % rcfg.degree == 0:
             return ops.paged_decode_attention(q, k_pool, v_pool, block_table,
                                               pos, rcfg, window=window,
                                               scale=scale, k_scale=k_scale,
@@ -285,16 +357,24 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0, *, window=None,
     (`repro/models/layers.py:505-566`).  q: (B,T,H,D), row t at cache
     position ``pos0[b] + t``; pools, block_table and scales as in
     `paged_decode_attention`.  A kernel backend dispatches the short-q
-    verify kernel when the per-slot page count tiles by the degree; the
-    plain path gathers the table into contiguous views and runs the decode
+    verify kernel when the per-slot page count tiles by the degree (more
+    than 32 query rows T*G a kv head, `rows_kernel_takes`, raise
+    NotImplementedError on the card and take the plain path on CPU
+    tensors, counted in ``verify_plain_routes``); the plain path gathers the table into contiguous views and runs the decode
     dense contraction with one more row axis, row for row what
     `decode_attention` computes at ``pos0 + t``."""
+    global verify_plain_routes
     b, t, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     npp = block_table.shape[1]
     if _uses_kernel(backend) and h % hkv == 0:
         rcfg = resolve(cfg)
-        if npp % rcfg.degree == 0:
+        if npp % rcfg.degree == 0 and not rows_kernel_takes(
+                t, h, hkv, d, ps, k_pool.element_size()):
+            _not_held(q, f"verify with T*G={t * (h // hkv)} query rows a kv "
+                      f"head at head dim {d}")
+            verify_plain_routes += 1
+        elif npp % rcfg.degree == 0:
             return ops.flash_attention_verify(
                 q, k_pool, v_pool, block_table, pos0, rcfg, window=window,
                 scale=scale, k_scale=k_scale, v_scale=v_scale)

@@ -16,8 +16,12 @@ its top-1/top-2 margin clears ``tie_tau`` times the row's logit standard
 deviation (default 0.1).  A row under the guard, or one holding a
 non-finite value, ends the step's emission there; a slot that would emit
 nothing gets its one token from a RESCUE pass through the base engine's
-own decode step, so every emitted token is one the base engine would have
-produced, and progress is guaranteed.
+own decode step, so every emitted token is one the base engine's decode
+step would produce on the same cache, and progress is guaranteed.  The
+cache itself is not the base engine's: rows the verify pass writes round
+otherwise than rows a decode step writes, so on the card a run can still
+part from `PagedEngine`'s tokens at a near-tie (bf16, random weights);
+with every row voided (``tie_tau=inf``) the two agree.
 
 Paged mechanics:
 
@@ -43,9 +47,6 @@ Differences from the reference:
   target's, are not here; nor is the fault-injection hook.
 * The draft runs on the target's backends (``decode_backend``,
   ``ffn_backend``, ``moe_backend``), whatever ``draft_cfg`` says.
-* The reference refuses recurrent and SSM stacks here (their state cannot
-  be rewound past rejected rows); the port's caches refuse them already
-  (`models.model` serves attention stacks only).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ import torch
 
 from repro_torch.core.device import synchronize
 from repro_torch.models import model as M
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.obs import ENGINE_TRACK
 from repro_torch.quant.qtypes import tree_nbytes
 from repro_torch.serve.engine import PagedEngine
@@ -71,6 +72,23 @@ def draft_of(cfg: ModelConfig, **overrides) -> ModelConfig:
     small = cfg.reduced(**{k: v for k, v in overrides.items()
                            if k != "vocab"})
     return dataclasses.replace(small, vocab=cfg.vocab)
+
+
+def clears_tie_guard(logits: torch.Tensor, tie_tau: float) -> torch.Tensor:
+    """Per row of ``logits`` (..., V): whether the top-1/top-2 margin
+    clears ``tie_tau`` times the row's logit spread (the verify/decode
+    divergence scales with activation magnitude)."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) \
+        >= tie_tau * logits.std(dim=-1, correction=0)
+
+
+def _attention_only(cfg: ModelConfig, what: str) -> None:
+    """The reference's attention-only checks (`repro/serve/spec.py:100-117`):
+    a rejected row cannot be rewound out of recurrent or SSM state."""
+    bad = [k for k in cfg.layer_kinds() if k not in (ATTN_GLOBAL, ATTN_LOCAL)]
+    if bad:
+        raise NotImplementedError(f"{what} {sorted(set(bad))}")
 
 
 class SpecPagedEngine(PagedEngine):
@@ -93,6 +111,9 @@ class SpecPagedEngine(PagedEngine):
                  tie_tau: float = 0.1, **kw):
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        _attention_only(cfg, "speculative decoding needs an attention-only "
+                        "stack (recurrent/SSM state cannot be rewound past "
+                        "rejected rows); target has")
         super().__init__(cfg, params, **kw)
         self.spec_k = int(spec_k)
         draft_cfg = draft_cfg if draft_cfg is not None \
@@ -101,6 +122,7 @@ class SpecPagedEngine(PagedEngine):
             raise ValueError(
                 f"draft vocab {draft_cfg.vocab} != target vocab "
                 f"{self.cfg.vocab}; draft proposals must be target ids")
+        _attention_only(draft_cfg, "draft model must be attention-only; has")
         self.draft_cfg = dataclasses.replace(
             draft_cfg, decode_backend=self.cfg.decode_backend,
             ffn_backend=self.cfg.ffn_backend,
@@ -219,11 +241,7 @@ class SpecPagedEngine(PagedEngine):
         logits, _ = M.lm_verify_step(self.params, self.cache, vtok, pos0,
                                      self.cfg, block_table=bt_dev,
                                      valid_len=keff_dev + 1)
-        top2 = torch.topk(logits, 2, dim=-1).values
-        # tie guard: the margin relative to the row's logit spread (the
-        # verify/decode divergence scales with activation magnitude)
-        clear = (top2[..., 0] - top2[..., 1]) \
-            >= self.tie_tau * logits.std(dim=-1, correction=0)
+        clear = clears_tie_guard(logits, self.tie_tau)
         finite = torch.isfinite(logits).all(dim=-1)
         greedy = torch.argmax(logits, dim=-1)
         return tuple(x.cpu().numpy() for x in (drafts, greedy, clear,

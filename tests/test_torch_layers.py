@@ -14,6 +14,7 @@ import torch
 from repro.configs import get_config
 from repro.models import layers as JL
 from repro_torch.configs import get_config as t_get_config
+from repro_torch.core.coarsening import BASE
 from repro_torch.models import layers as TL
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -158,3 +159,152 @@ def test_unknown_backend_raises():
     p = {n: torch.zeros(256, 256) for n in ("w1", "w3", "w2")}
     with pytest.raises(ValueError, match="backend"):
         TL.ffn(p, torch.zeros(2, 256), backend="pallas")
+
+
+# -- the port's kernel-eligibility rules (geometries its kernels do not hold
+#    go to the plain path on CPU tensors, counted, and raise on the card;
+#    the reference's Pallas kernels take them)
+
+# arch: (flash fwd/bwd at the config's blocks, paged decode at page 16,
+# verify at T = 5 (--spec-k 4), contiguous decode at the config's bkv)
+ROUTES = {
+    "qwen3-0.6b": (True, True, True, True),
+    "qwen2-moe-a2.7b": (True, True, True, True),
+    "olmoe-1b-7b": (True, True, True, True),
+    "qwen1.5-4b": (True, True, True, True),
+    "seamless-m4t-large-v2": (True, True, True, True),
+    "gemma3-1b": (False, True, True, True),             # head dim 256
+    "recurrentgemma-2b": (False, False, False, True),   # head dim 256, G 10
+    "yi-34b": (True, True, False, True),                # T*G = 35
+    "qwen2-vl-7b": (True, True, False, True),           # T*G = 35
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ROUTES))
+def test_kernel_routes_of_the_shipped_configs(arch):
+    """Which kernel each shipped config's attention geometry reaches on
+    the card; qwen3-0.6b and qwen2-moe-a2.7b (the served paths of
+    `chip_smoke.py`) reach every one."""
+    c = t_get_config(arch)
+    g = (c.n_heads, c.n_kv_heads, c.hd)
+    for elem in (2, 1):                       # bf16 and int8 caches
+        got = (TL.flash_kernel_takes(c.hd, c.attn_bq, c.attn_bkv, BASE,
+                                     BASE),
+               TL.paged_kernel_takes(*g, 16, elem),
+               TL.rows_kernel_takes(5, *g, 16, elem),
+               TL.rows_kernel_takes(1, *g, c.decode_bkv, elem))
+        assert got == ROUTES[arch]
+
+
+def _pools(rng, b, h, hkv, d, ps=4, npp=4):
+    n_pages = b * npp + 1
+    q = torch.from_numpy(_rand(rng, b, 1, h, d))
+    kp = torch.from_numpy(_rand(rng, n_pages, ps, hkv, d))
+    vp = torch.from_numpy(_rand(rng, n_pages, ps, hkv, d))
+    bt = torch.from_numpy(rng.permutation(np.arange(1, n_pages))
+                          .reshape(b, npp).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(1, npp * ps, b).astype(np.int32))
+    return q, kp, vp, bt, pos
+
+
+@pytest.mark.parametrize("h,hkv,plain", [(10, 1, True), (4, 2, False)])
+def test_paged_decode_route_beyond_the_kernel(h, hkv, plain):
+    """G > 8 (recurrentgemma-2b's 10) takes the plain path under the
+    kernel backend, counted; G 2 takes the kernel's wrapper."""
+    q, kp, vp, bt, pos = _pools(np.random.default_rng(1), 2, h, hkv, 32)
+    before = TL.paged_plain_routes
+    got = TL.paged_decode_attention(q, kp, vp, bt, pos, backend="cuda")
+    assert TL.paged_plain_routes - before == int(plain)
+    want = TL.paged_decode_attention(q, kp, vp, bt, pos, backend="ref")
+    if plain:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("h,hkv,plain", [(14, 2, True), (4, 2, False)])
+def test_verify_route_beyond_the_kernel(h, hkv, plain):
+    """T*G > 32 query rows a kv head (yi-34b at --spec-k 4: 5 * 7) takes
+    the plain path under the kernel backend, counted."""
+    rng = np.random.default_rng(2)
+    _, kp, vp, bt, pos = _pools(rng, 2, h, hkv, 32)
+    q = torch.from_numpy(_rand(rng, 2, 5, h, 32))
+    pos0 = pos.clamp(max=8)
+    before = TL.verify_plain_routes
+    got = TL.verify_attention(q, kp, vp, bt, pos0, backend="cuda")
+    assert TL.verify_plain_routes - before == int(plain)
+    want = TL.verify_attention(q, kp, vp, bt, pos0, backend="ref")
+    if plain:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("d,plain", [(256, True), (64, False)])
+def test_flash_route_beyond_the_kernel(d, plain):
+    """Head dim 256 (gemma3-1b, recurrentgemma-2b) takes `mea_attention`
+    under the kernel backend, counted; head dim 64 takes the kernel's
+    wrapper."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_rand(rng, 1, 128, 2, d))
+    k = torch.from_numpy(_rand(rng, 1, 128, 1, d))
+    v = torch.from_numpy(_rand(rng, 1, 128, 1, d))
+    before = TL.flash_plain_routes
+    got = TL.flash_attention(q, k, v, pos_trivial=True, backend="cuda",
+                             sparse="off")
+    assert TL.flash_plain_routes - before == int(plain)
+    want = TL.mea_attention(q, k, v, causal=True)
+    if plain:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_contiguous_decode_route_beyond_the_kernel():
+    """G > 32 query rows a kv head takes the dense path, counted."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(_rand(rng, 2, 1, 40, 32))
+    kc = torch.from_numpy(_rand(rng, 2, 16, 1, 32))
+    vc = torch.from_numpy(_rand(rng, 2, 16, 1, 32))
+    pos = torch.tensor([3, 15], dtype=torch.int32)
+    before = TL.decode_plain_routes
+    got = TL.decode_attention(q, kc, vc, pos, backend="cuda", bkv=8)
+    assert TL.decode_plain_routes - before == 1
+    torch.testing.assert_close(
+        got, TL.decode_attention(q, kc, vc, pos, backend="ref"), rtol=0,
+        atol=0)
+
+
+def _unheld(route):
+    """A dispatch of `route` at a geometry the port's kernel does not hold,
+    on tensors of no CPU device (``meta``: shapes without data)."""
+    m = dict(device="meta")
+    if route == "flash":
+        q = torch.empty(1, 128, 2, 256, **m)
+        k = torch.empty(1, 128, 1, 256, **m)
+        return lambda: TL.flash_attention(q, k, k, pos_trivial=True,
+                                          backend="cuda", sparse="off")
+    if route == "decode":
+        q, kc = torch.empty(2, 1, 40, 32, **m), torch.empty(2, 16, 1, 32, **m)
+        pos = torch.empty(2, dtype=torch.int32, **m)
+        return lambda: TL.decode_attention(q, kc, kc, pos, backend="cuda",
+                                           bkv=8)
+    t, h = (1, 10) if route == "paged" else (5, 14)
+    q = torch.empty(2, t, h, 32, **m)
+    kp = torch.empty(9, 4, h // 7 if route == "verify" else 1, 32, **m)
+    bt = torch.empty(2, 4, dtype=torch.int32, **m)
+    pos = torch.empty(2, dtype=torch.int32, **m)
+    fn = TL.paged_decode_attention if route == "paged" else \
+        TL.verify_attention
+    return lambda: fn(q, kp, kp, bt, pos, backend="cuda")
+
+
+@pytest.mark.parametrize("route", ["flash", "decode", "paged", "verify"])
+def test_unheld_geometry_raises_off_the_cpu(route):
+    """Off the CPU a geometry the port's kernel does not hold raises
+    NotImplementedError naming it, uncounted: the plain path never stands
+    in for a kernel on the card."""
+    before = getattr(TL, f"{route}_plain_routes")
+    with pytest.raises(NotImplementedError, match="does not hold"):
+        _unheld(route)()
+    assert getattr(TL, f"{route}_plain_routes") == before

@@ -347,6 +347,22 @@ def test_vocab_mismatch_and_spec_k_rejected(tiny_model):
         SpecPagedEngine(cfg, params, spec_k=0, **KW)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-370m"])
+def test_recurrent_target_and_draft_rejected(tiny_model, arch):
+    """The reference's attention-only checks (`repro/serve/spec.py:100-117`)
+    on the target and on the draft, with its messages: recurrent and SSM
+    state cannot be rewound past rejected rows."""
+    cfg, params = tiny_model
+    other = t_get_config(arch).reduced()
+    with pytest.raises(NotImplementedError,
+                       match="needs an attention-only stack"):
+        SpecPagedEngine(other, None, spec_k=2, **KW)
+    draft = dataclasses.replace(other, vocab=cfg.vocab)
+    with pytest.raises(NotImplementedError,
+                       match="draft model must be attention-only"):
+        SpecPagedEngine(cfg, params, spec_k=2, draft_cfg=draft, **KW)
+
+
 def test_step_growth_bound_accounts_k_plus_1_rows(tiny_model):
     """The scheduler's admission headroom hook (missing from the port's
     engine before): a verify step may append K+1 rows per running slot,
