@@ -10,33 +10,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (one nvcc per source, in parallel) and print the build time.
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's full-width shapes, for every coarsening label listed, with
-   the stated tolerance; then its time (CUDA events, L2 flushed before
-   each launch, median), its plain version's time, one PyTorch library
-   call's time and the least time the card could take (``bound_ms``).
-   The flash kernels are held row by row (see FLASH_ULPS), and
-   plain-version models of a lost kv block, a lost block of the causal
-   edge and a kv block lost by the last q block only show that the limits
-   catch each.  The qwen2-moe-a2.7b kernels: the int8-pool paged decode,
-   the grouped-expert MoE FFN (capacities 128 and 8), its dequant-fused
-   twin (int8 and int4) and the dequant-fused matmul (int8 and int4), each
-   error printed as a ratio of its limit beside a fault model (a lost page
-   of V scales, a lost expert, a lost scale, swapped nibbles) that must
-   exceed it.  The contiguous split-KV decode (bf16 and int8 caches, B 8,
-   S 1024, bkv 128, one slot at pos S + 6) and the short-q verify (bf16
-   and int8 pools, T 5, page 16) for every label, with and without a
-   window, beside their fault models (a lost kv block or page, lost V
-   scales, and for verify row t's mask shifted by one).  The paper's
-   microbenchmark kernels at the paper's sizes (64M-element f32 streams,
-   an 8192^2 stencil, a 1024 x 2^20 DP scan): the streaming kernel under
-   every label and every divergence variant at AI 6, the gather (tables of
-   2^14 at locality 4096, and of 2^24 fully random), the stencil and the
-   DP scan (base, con2/4/8, gap2 refused), each bit-equal to its plain
-   version; the stream and stencil kernels' owner maps (a probe build
-   stores each element's flat program index) equal to the plan's for
-   every label; the DP's rows/C launches a call; fault models (a lost
-   sub-block, con and gap swapped, a block's first row reading itself as
-   its upper neighbour, the DP carry from row t-2) shown to fail the
-   checks.
+   the stated tolerance; then its time (CUDA events, L2 flushed before each
+   launch, median), its plain version's time, one PyTorch library call's
+   time and the least time the card could take (``bound_ms``). The flash
+   kernels are held row by row (see FLASH_ULPS), and plain-version models
+   of a lost kv block, a lost block of the causal edge and a kv block lost
+   by the last q block only show that the limits catch each. The same three
+   kernels at head dim 256 on the gemma3-1b train shape (B 1, H 4/1, S
+   4096), causal and with window 512 (base at blocks of 128, con2 and gap2
+   at 64), under the same limits and fault models. The block-sparse flash
+   forward on that shape (window 512) for base, con2, gap2, con4 and gap4:
+   o against the plain walk of the live index, (m, l) against the dense D
+   256 forward's; for five q blocks every K/V row outside that block's live
+   set NaN, its rows still held; a plain model of a skipped live slot must
+   exceed the limit; base and gap2 again with global columns (stride
+   1024); its time beside the dense windowed forward's. The
+   qwen2-moe-a2.7b kernels: the int8-pool paged decode, the grouped-expert
+   MoE FFN (capacities 128 and 8), its dequant-fused twin (int8 and int4)
+   and the dequant-fused matmul (int8 and int4), each error printed as a
+   ratio of its limit beside a fault model (a lost page of V scales, a lost
+   expert, a lost scale, swapped nibbles) that must exceed it. The
+   contiguous split-KV decode (bf16 and int8 caches, B 8, S 1024, bkv 128,
+   one slot at pos S + 6) and the short-q verify (bf16 and int8 pools, T 5,
+   page 16) for every label, with and without a window, beside their fault
+   models (a lost kv block or page, lost V scales, and for verify row t's
+   mask shifted by one). The paper's microbenchmark kernels at the paper's
+   sizes (64M-element f32 streams, an 8192^2 stencil, a 1024 x 2^20 DP
+   scan): the streaming kernel under every label and every divergence
+   variant at AI 6, the gather (tables of 2^14 at locality 4096, and of
+   2^24 fully random), the stencil and the DP scan (base, con2/4/8, gap2
+   refused), each bit-equal to its plain version; the stream and stencil
+   kernels' owner maps (a probe build stores each element's flat program
+   index) equal to the plan's for every label; the DP's rows/C launches a
+   call; fault models (a lost sub-block, con and gap swapped, a block's
+   first row reading itself as its upper neighbour, the DP carry from row
+   t-2) shown to fail the checks.
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
@@ -66,7 +74,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel path must match within limits that three planted faults of the
    kernel path (dQ zeroed, dK/dV zeroed, a V tile read as zeros) exceed,
    and a resume check (2 steps, checkpoint, 2 resumed steps) that must
-   repeat the kernel path's losses exactly.
+   repeat the kernel path's losses exactly.  Then full-width gemma3-1b (26
+   layers, 22 local with window 512, hd 256, vocab 262144, tied
+   embeddings; batch 1 x 4096 tokens) for 4 steps three times: (a) the
+   kernels with the block-sparse forward on the local layers (launches
+   exactly 22 x 4 sparse, 4 x 4 dense forward, 26 x 4 dQ and dK/dV), (b)
+   the kernels dense-mask on every layer, (c) the plain attention; (a) and
+   (b) held against (c) on step-0 loss, step-0 grad norm and step-1 loss,
+   four planted faults of (a) shown to exceed those limits, and the step
+   seconds of the three printed side by side.
 6. serve MoE — full-width qwen2-moe-a2.7b (24 layers, 64 padded experts,
    random bf16 weights from a seeded generator) through `Scheduler` over
    `PagedEngine`: 8 requests of 64-255 prompt tokens and 32 generated
@@ -127,6 +143,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import gather_stream as gs_mod  # noqa: E402
 from repro_torch.kernels import matmul as mm_mod  # noqa: E402
 from repro_torch.kernels import moe_ffn as moe_mod  # noqa: E402
+from repro_torch.kernels import sparse_attention as sp_mod  # noqa: E402
 from repro_torch.kernels import stencil as st_mod  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import blocks as B  # noqa: E402
@@ -356,8 +373,8 @@ def matmul_phase(gen: torch.Generator) -> dict:
 
 # -- phase 3: flash attention (forward, dQ, dK/dV) ---------------------------
 
-def flash_inputs(gen: torch.Generator):
-    b, h, hkv, s, d = (FLASH[k] for k in ("b", "h", "hkv", "s", "d"))
+def flash_inputs(gen: torch.Generator, shape: dict):
+    b, h, hkv, s, d = (shape[k] for k in ("b", "h", "hkv", "s", "d"))
     q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").bfloat16()
     v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").bfloat16()
@@ -384,15 +401,18 @@ def group_sum(x, hkv):
     return x.reshape(x.shape[0], hkv, -1, *x.shape[2:]).sum(2)
 
 
-def causal_keep(n, device):
-    return torch.ones(n, n, dtype=torch.bool, device=device).tril()
+def flash_keep(n, window, device):
+    """The causal (and sliding-window) mask over (q row, kv row)."""
+    keep = torch.ones(n, n, dtype=torch.bool, device=device).tril()
+    if window is not None:
+        keep &= torch.ones_like(keep).triu(-window + 1)
+    return keep
 
 
-def flash_cond(q, k, v, do, m, l, delta):
+def flash_cond(q, k, v, do, m, l, delta, keep):
     """The f32 error allowance of dS = p (dP - delta) carried into dQ and
     dK (see FLASH_ULPS) -> (cond_dq, cond_dk)."""
-    p, _, ke, ve, scale = flash_planes(q, k, v, do, m, l,
-                                       causal_keep(q.shape[2], q.device))
+    p, _, ke, ve, scale = flash_planes(q, k, v, do, m, l, keep)
     c = p * (torch.einsum("bhqd,bhkd->bhqk", do.abs(), ve.abs())
              + delta.abs()[..., None])
     del p
@@ -401,11 +421,11 @@ def flash_cond(q, k, v, do, m, l, delta):
     return F32_SUMS * cq, F32_SUMS * group_sum(ck, k.shape[1])
 
 
-def flash_fault_model(q, k, v, do, m, l, delta, rows, cols):
+def flash_fault_model(q, k, v, do, m, l, delta, rows, cols, keep):
     """Plain-PyTorch model of kernels that lose the (rows x cols) block of
     (q, kv) pairs: the forward renormalises over what it saw, the backward
     drops those terms from its sums -> {o, dq, dk, dv}."""
-    keep = causal_keep(q.shape[2], q.device)
+    keep = keep.clone()
     keep[rows, cols] = False
     p, dp, ke, ve, scale = flash_planes(q, k, v, do, m, l, keep)
     lf = p.sum(-1, keepdim=True)
@@ -419,9 +439,29 @@ def flash_fault_model(q, k, v, do, m, l, delta, rows, cols):
             "dv": group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do), hkv)}
 
 
-def flash_phase(gen: torch.Generator) -> list:
-    q, k, v, do = flash_inputs(gen)
-    geo = dict(bq=FLASH["bq"], bkv=FLASH["bkv"])
+def flash_faults(s: int, blk: int, window) -> dict:
+    """Lost blocks the limits must catch: a whole kv block, the last
+    causal-edge block, and a block lost by the last q block only (kv block
+    0 under causal attention; the trailing edge of its window under a
+    sliding window, where block 0 lies outside it)."""
+    edge = slice(0, blk) if window is None else \
+        slice(s - window - blk, s - window)
+    return {"kv block 3 lost": (slice(None), slice(3 * blk, 4 * blk)),
+            "last causal-edge block lost": (slice(s - blk, s),
+                                            slice(s - blk, s)),
+            "kv block lost by the last q block only": (slice(s - blk, s),
+                                                       edge)}
+
+
+def flash_hold(tag: str, q, k, v, do, cases, window=None) -> tuple:
+    """Hold the forward, dQ and dK/dV kernels against their plain versions
+    for every (label, block rows) in ``cases``, each row within its own
+    limit, after showing that the fault models exceed those limits ->
+    (worst max|kernel - plain| per kernel, the kernels' residual inputs
+    (do, m, l, delta))."""
+    s = q.shape[2]
+    keep = flash_keep(s, window, q.device)
+    geo = dict(bq=cases[0][1], bkv=cases[0][1], window=window)
     o_r, m_r, l_r = ref.flash_forward(q, k, v, residuals=True, **geo)
     delta = (do * o_r).sum(-1)              # from the f32 cotangent, as ops
     res = (do, m_r, l_r, delta)             # the kernels' inputs
@@ -429,37 +469,31 @@ def flash_phase(gen: torch.Generator) -> list:
     dq_r = ref.flash_bwd_dq(q, k, v, *res_p, **geo)
     dk_r, dv_r = ref.flash_bwd_dkv(q, k, v, *res_p, **geo)
     want = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
-    cond_dq, cond_dk = flash_cond(q, k, v, *res_p)
+    cond_dq, cond_dk = flash_cond(q, k, v, *res_p, keep)
     tol = {"o": flash_tol(o_r), "dq": flash_tol(dq_r, cond_dq),
            "dk": flash_tol(dk_r, cond_dk), "dv": flash_tol(dv_r)}
     del cond_dq, cond_dk
     tol_m = 2.0 ** -16 * m_r.abs().max().item()
     tol_l = 2.0 ** -16 * l_r
 
-    # the limits must catch a lost kv block, a lost causal-edge block and a
-    # kv block lost by late rows only
-    blk, s = FLASH["bkv"], FLASH["s"]
-    faults = {"kv block 3 lost": (slice(None), slice(3 * blk, 4 * blk)),
-              "last causal-edge block lost": (slice(s - blk, s),
-                                              slice(s - blk, s)),
-              "kv block 0 lost by the last q block": (slice(s - blk, s),
-                                                      slice(0, blk))}
-    for what, (rows, cols) in faults.items():
-        bad = flash_fault_model(q, k, v, *res_p, rows, cols)
+    for what, (rows, cols) in flash_faults(s, cases[0][1], window).items():
+        bad = flash_fault_model(q, k, v, *res_p, rows, cols, keep)
         dev = {n: tol_ratio(bad[n], want[n], tol[n]) for n in want}
-        print(f"flash fault model, {what}: max deviation / limit "
+        print(f"{tag} fault model, {what}: max deviation / limit "
               + ", ".join(f"{n} {dev[n]:.2f}" for n in want), flush=True)
         if not all(dev[n] > 1 for n in want):
-            raise SystemExit(f"flash limits would not catch: {what}")
+            raise SystemExit(f"{tag} limits would not catch: {what}")
         del bad
+    del keep
 
     worst = {"flash_forward": 0.0, "flash_bwd_dq": 0.0,
              "flash_bwd_dkv": 0.0}
-    for label in FLASH_LABELS:
-        o, m, l = fa_mod.flash_forward(q, k, v, label, residuals=True, **geo)
-        o_nr = fa_mod.flash_forward(q, k, v, label, **geo)
-        dq = fa_mod.flash_bwd_dq(q, k, v, *res, label, **geo)
-        dk, dv = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **geo)
+    for label, blk in cases:
+        kw = dict(bq=blk, bkv=blk, window=window)
+        o, m, l = fa_mod.flash_forward(q, k, v, label, residuals=True, **kw)
+        o_nr = fa_mod.flash_forward(q, k, v, label, **kw)
+        dq = fa_mod.flash_bwd_dq(q, k, v, *res, label, **kw)
+        dk, dv = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **kw)
         torch.cuda.synchronize()
         got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
         ratio = {n: tol_ratio(got[n], want[n], tol[n]) for n in want}
@@ -467,13 +501,13 @@ def flash_phase(gen: torch.Generator) -> list:
         ratio["m"] = (m - m_r).abs().max().item() / tol_m
         ratio["l"] = tol_ratio(l, l_r, tol_l)
         err = {n: (got[n] - want[n]).abs().max().item() for n in want}
-        print(f"flash {label:4s}: max|kernel-plain| "
+        print(f"{tag} {label:4s} (blocks {blk}): max|kernel-plain| "
               + ", ".join(f"{n} {e:.3e}" for n, e in err.items())
               + "; max error / limit "
               + ", ".join(f"{n} {r:.3f}" for n, r in ratio.items()),
               flush=True)
         if not all(r <= 1 for r in ratio.values()):
-            raise SystemExit(f"flash kernels under {label} disagree with "
+            raise SystemExit(f"{tag} kernels under {label} disagree with "
                              f"their plain versions")
         err_f = max((o - o_r).abs().max().item(),
                     (o_nr - o_r).abs().max().item(),
@@ -483,12 +517,19 @@ def flash_phase(gen: torch.Generator) -> list:
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err["dq"])
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err["dk"],
                                      err["dv"])
-    del tol, want
+    return worst, res
 
-    # bound: each input read once, each output written once; the causal
-    # work covers the S(S+1)/2 live (q, kv) pairs of each head
-    b, h, hkv, d = (FLASH[k] for k in ("b", "h", "hkv", "d"))
-    pairs = b * h * s * (s + 1) // 2
+
+def flash_time(tag: str, q, k, v, res, blk: int, window=None) -> dict:
+    """Time the three kernels (base), their plain versions and SDPA at
+    one shape -> {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}.
+    Bound: each input read once, each output written once; the work of
+    the live (q, kv) pairs of the causal (window) mask."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    geo = dict(bq=blk, bkv=blk, window=window)
+    keep = flash_keep(s, window, q.device)
+    pairs = b * h * int(keep.sum().item())
     qb, kvb = b * h * s * d * 2, 2 * b * hkv * s * d * 2   # bf16 q; k + v
     f32_q, stat = b * h * s * d * 4, b * h * s * 4
     work = {"flash_forward": (qb + kvb + f32_q + 2 * stat, 4 * d * pairs),
@@ -507,29 +548,43 @@ def flash_phase(gen: torch.Generator) -> list:
             lambda: fa_mod.flash_bwd_dkv(q, k, v, *res, **geo),
             lambda: ref.flash_bwd_dkv(q, k, v, *res, **geo))}
     # yardsticks: SDPA's forward, and its backward (dQ, dK and dV together)
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    o_s = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
-    g_s = do.bfloat16()
-    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    mask = dict(is_causal=True) if window is None else dict(attn_mask=keep)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_s = sdpa(qs, ks, vs, enable_gqa=True, **mask)
+    g_s = res[0].bfloat16()
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, enable_gqa=True, **mask))
     lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), g_s,
                                                   retain_graph=True))
     library = {"flash_forward": lib_fwd, "flash_bwd_dq": lib_bwd,
                "flash_bwd_dkv": lib_bwd}
-    replaces = {"flash_forward": 196, "flash_bwd_dq": 291,
-                "flash_bwd_dkv": 421}
-    out = []
+    out = {}
     for name, (kernel, plain) in calls.items():
         io_bytes, flops = work[name]
         t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
         ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5)
-        print(f"{name} timing (base, B={b} H={h} Hkv={hkv} S={s} D={d} "
-              f"causal): kernel {ms:.4f} ms | bound {bound_ms:.4f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}) | plain "
-              f"{plain_ms:.4f} ms | sdpa {library[name]:.4f} ms"
+        print(f"{tag} {name} timing (base, B={b} H={h} Hkv={hkv} S={s} "
+              f"D={d} window={window}): kernel {ms:.4f} ms | bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | plain {plain_ms:.4f} ms | "
+              f"sdpa {library[name]:.4f} ms"
               + (" (backward: dQ, dK, dV together)"
                  if name != "flash_forward" else ""), flush=True)
+        out[name] = (ms, plain_ms, bound_ms, bound_by, library[name])
+    return out
+
+
+def flash_phase(gen: torch.Generator) -> list:
+    q, k, v, do = flash_inputs(gen, FLASH)
+    blk = FLASH["bq"]
+    worst, res = flash_hold("flash", q, k, v, do,
+                            [(label, blk) for label in FLASH_LABELS])
+    times = flash_time("flash", q, k, v, res, blk)
+    replaces = {"flash_forward": 196, "flash_bwd_dq": 291,
+                "flash_bwd_dkv": 421}
+    out = []
+    for name, (ms, plain_ms, bound_ms, bound_by, lib_ms) in times.items():
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/"
                               "flash_attention.cu",
@@ -537,10 +592,9 @@ def flash_phase(gen: torch.Generator) -> list:
                                 f"{replaces[name]}",
                     "max_abs_err": worst[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes" if t_bytes >= t_ops
-                    else "operations",
-                    "library_ms": library[name]})
+                    "bound_by": bound_by, "library_ms": lib_ms})
     # the coarsened programs against base (the main path's label)
+    geo = dict(bq=blk, bkv=blk)
     for label in FLASH_LABELS[1:]:
         t = [time_ms(lambda: fa_mod.flash_forward(q, k, v, label,
                                                   residuals=True, **geo)),
@@ -552,6 +606,168 @@ def flash_phase(gen: torch.Generator) -> list:
               f"{t[1]:.4f} ms | dK/dV {t[2]:.4f} ms (base: "
               + " | ".join(f"{o['ms']:.4f}" for o in out) + ")", flush=True)
     return out
+
+
+# -- phase 3: flash attention at head dim 256, block-sparse flash -------------
+
+# the gemma3-1b train phase's attention: batch 1 x 4096 tokens, 4/1 heads,
+# head dim 256, the config's bq = bkv = 128, window 512 on the local layers
+SPARSE = dict(b=1, h=4, hkv=1, s=4096, d=256, bq=128, bkv=128, window=512)
+SPARSE_LABELS = ("base", "con2", "gap2", "con4", "gap4")
+# head dim 256 holds programs of up to 128 rows: the coarsened labels run
+# at blocks of 64
+FLASH256_CASES = (("base", 128), ("con2", 64), ("gap2", 64))
+# q blocks whose K/V rows outside their own live set are poisoned with NaN:
+# the first, one inside and one past the first window, a middle and the last
+SPARSE_POISONED = (0, 3, 4, 17, 31)
+# global columns of the stride check (`--attn-global-stride`): every 1024th
+SPARSE_GLOBAL_STRIDE = 1024
+
+
+def flash256_phase(gen: torch.Generator) -> dict:
+    """Rows 5-7 at head dim 256 on the gemma3 train shape, global (causal)
+    and windowed, under the D 128 checks and limits -> {window: times}."""
+    q, k, v, do = flash_inputs(gen, SPARSE)
+    out = {}
+    for window in (None, SPARSE["window"]):
+        tag = f"flash D=256 window={window}"
+        _, res = flash_hold(tag, q, k, v, do, FLASH256_CASES, window)
+        out[window] = flash_time(tag, q, k, v, res, SPARSE["bq"], window)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sparse_phase(gen: torch.Generator, dense_ms: float) -> dict:
+    """Row 8 on the gemma3 train shape for every label: o within the flash
+    per-row limits of the plain walk (`ref.flash_sparse`), (m, l) within
+    2^-16 of the dense D 256 forward's residuals (kernel and plain); for
+    each q block of SPARSE_POISONED, every K/V row outside its live set
+    NaN and its rows still held; a plain model of a skipped live slot
+    shown to exceed the limit; then the times beside the dense forward's
+    (``dense_ms``, windowed, same shape)."""
+    b, h, hkv, s, d, bq, bkv, w = (SPARSE[k] for k in (
+        "b", "h", "hkv", "s", "d", "bq", "bkv", "window"))
+    q, k, v, _ = flash_inputs(gen, SPARSE)
+    kw = dict(bq=bq, bkv=bkv, window=w)
+    idx = sp_mod.device_index(s, s, bq, bkv, causal=True, window=w,
+                              global_stride=None, device="cuda")
+    want, m_r, l_r = ref.flash_sparse(q, k, v, idx, **kw)
+    tol = flash_tol(want)
+    _, m_d, l_d = fa_mod.flash_forward(q, k, v, residuals=True, **kw)
+    _, m_p, l_p = ref.flash_forward(q, k, v, residuals=True, **kw)
+    tol_m = 2.0 ** -16 * m_p.abs().max().item()
+    tol_l = 2.0 ** -16 * l_p
+    for name, m_, l_ in (("dense kernel", m_d, l_d),
+                         ("dense plain", m_p, l_p), ("plain walk", m_r, l_r)):
+        print(f"sparse: (m, l) of the {name} against the dense plain "
+              f"forward's: {(m_ - m_p).abs().max().item() / tol_m:.3f}, "
+              f"{tol_ratio(l_, l_p, tol_l):.3f} of the limits", flush=True)
+    # the fault model: every q block but the first (whose only block it
+    # is) skips its first live slot
+    lost = idx.clone()
+    lost[1:, 0] = sp_mod.NULL_BLOCK
+    bad = ref.flash_sparse(q, k, v, lost, **kw)[0]
+    ratio = tol_ratio(bad, want, tol)
+    print(f"sparse fault model, first live slot skipped: max deviation / "
+          f"limit {ratio:.2f}", flush=True)
+    if not ratio > 1:
+        raise SystemExit("the sparse limit would not catch a skipped slot")
+    del bad
+
+    worst = 0.0
+    idx_h = idx.cpu()
+    for label in SPARSE_LABELS:
+        o, m, l = sp_mod.flash_sparse_fwd(q, k, v, idx, label, residuals=True,
+                                          **kw)
+        o_nr = sp_mod.flash_sparse_fwd(q, k, v, idx, label, **kw)
+        torch.cuda.synchronize()
+        r = {"o": tol_ratio(o, want, tol),
+             "o (no residuals)": tol_ratio(o_nr, want, tol),
+             "m vs dense kernel": (m - m_d).abs().max().item() / tol_m,
+             "l vs dense kernel": tol_ratio(l, l_d, tol_l),
+             "m vs plain": (m - m_p).abs().max().item() / tol_m,
+             "l vs plain": tol_ratio(l, l_p, tol_l)}
+        err = max((o - want).abs().max().item(),
+                  (o_nr - want).abs().max().item())
+        # NaN outside the live set of one q block at a time: that block's
+        # rows must come out finite and within the limit
+        for qb in SPARSE_POISONED:
+            live = idx_h[qb][idx_h[qb] >= 0].tolist()
+            dead = torch.ones(s, dtype=torch.bool, device="cuda")
+            for j in live:
+                dead[j * bkv:(j + 1) * bkv] = False
+            kp, vp = k.clone(), v.clone()
+            kp[:, :, dead] = float("nan")
+            vp[:, :, dead] = float("nan")
+            rows = slice(qb * bq, (qb + 1) * bq)
+            op = sp_mod.flash_sparse_fwd(q, kp, vp, idx, label, **kw)
+            op, wq = op[:, :, rows], want[:, :, rows]
+            r[f"poisoned q block {qb}"] = (
+                tol_ratio(op, wq, tol[:, :, rows])
+                if torch.isfinite(op).all() else math.inf)
+            err = max(err, (op - wq).abs().max().item())
+            del kp, vp
+        print(f"sparse {label:4s}: max|kernel-plain| {err:.3e}; max error / "
+              f"limit " + ", ".join(f"{n} {x:.3f}" for n, x in r.items()),
+              flush=True)
+        if not all(x <= 1 for x in r.values()):
+            raise SystemExit(f"sparse kernel under {label} disagrees with "
+                             f"its plain version")
+        worst = max(worst, err)
+
+    # LongFormer-style global columns on the window (the kernel's other
+    # mask): the index lists their blocks too
+    gs = SPARSE_GLOBAL_STRIDE
+    idx_g = sp_mod.device_index(s, s, bq, bkv, causal=True, window=w,
+                                global_stride=gs, device="cuda")
+    want_g = ref.flash_sparse(q, k, v, idx_g, global_stride=gs, **kw)[0]
+    for label in ("base", "gap2"):
+        got = sp_mod.flash_sparse_fwd(q, k, v, idx_g, label, global_stride=gs,
+                                      **kw)
+        r, err = (tol_ratio(got, want_g, flash_tol(want_g)),
+                  (got - want_g).abs().max().item())
+        print(f"sparse {label:4s} global stride {gs} (index width "
+              f"{idx_g.shape[1]}): max|kernel-plain| {err:.3e}; max error / "
+              f"limit {r:.3f}", flush=True)
+        if not r <= 1:
+            raise SystemExit(f"sparse kernel under {label} with global "
+                             f"columns disagrees with its plain version")
+        worst = max(worst, err)
+    del want_g
+
+    # bound: q, k, v bf16 in, o f32 and (m, l) out, the index; the work of
+    # the live (q, k) pairs only
+    keep = flash_keep(s, w, q.device)
+    pairs = b * h * int(keep.sum().item())
+    io_bytes = (b * h * s * d * 2 + 2 * b * hkv * s * d * 2
+                + b * h * s * d * 4 + 2 * b * h * s * 4 + idx.numel() * 4)
+    flops = 4 * d * pairs
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    ms = time_ms(lambda: sp_mod.flash_sparse_fwd(q, k, v, idx, residuals=True,
+                                                 **kw))
+    plain_ms = time_ms(lambda: ref.flash_sparse(q, k, v, idx, **kw), reps=5)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep, enable_gqa=True))
+    labels = {label: time_ms(lambda: sp_mod.flash_sparse_fwd(
+        q, k, v, idx, label, residuals=True, **kw))
+        for label in SPARSE_LABELS[1:]}
+    print(f"flash_sparse timing (base, B={b} H={h} Hkv={hkv} S={s} D={d} "
+          f"window={w}, {int((idx >= 0).sum())} live of "
+          f"{(s // bq) * (s // bkv + 1) // 2} causal kv blocks): kernel "
+          f"{ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) | plain "
+          f"{plain_ms:.4f} ms | sdpa (window mask) {lib_ms:.4f} ms | dense "
+          f"flash forward, same shape and mask, {dense_ms:.4f} ms; labels "
+          + ", ".join(f"{n} {t:.4f}" for n, t in labels.items()), flush=True)
+    return {"name": "flash_sparse_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sparse_attention.cu",
+            "replaces": "src/repro/kernels/sparse_attention.py:287",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
 
 
 # -- phase 3: the MoE kernels, the dequant-fused matmul, int8-pool decode ----
@@ -1563,6 +1779,7 @@ COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "flash_forward": (fa_mod, "fwd_launches"),
             "flash_bwd_dq": (fa_mod, "dq_launches"),
             "flash_bwd_dkv": (fa_mod, "dkv_launches"),
+            "flash_sparse_fwd": (sp_mod, "launches"),
             "ew_stream": (ew_mod, "launches"),
             "gather_stream": (gs_mod, "launches"),
             "stencil5": (st_mod, "launches"),
@@ -2184,29 +2401,32 @@ TRAIN_FAULTS = {"dQ zeroed": ("step-0 grad norm", "step-1 loss"),
 
 @contextlib.contextmanager
 def planted(fault: str):
-    """Swap one flash wrapper for a faulty one while the block runs."""
+    """Swap one kernel wrapper for a faulty one while the block runs."""
     def zeros(t):
         return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
 
-    fwd = fa_mod.flash_forward
+    def lost_v(fwd):
+        def faulty(q, k, v, *a, bkv, **kw):
+            v = v.clone()
+            v[:, :, 3 * bkv:4 * bkv] = 0
+            return fwd(q, k, v, *a, bkv=bkv, **kw)
+        return faulty
 
-    def fwd_lost_v(q, k, v, *a, bkv, **kw):
-        v = v.clone()
-        v[:, :, 3 * bkv:4 * bkv] = 0
-        return fwd(q, k, v, *a, bkv=bkv, **kw)
-
-    name, faulty = {
-        "dQ zeroed": ("flash_bwd_dq", lambda q, *a, **kw: zeros(q)),
-        "dK/dV zeroed": ("flash_bwd_dkv",
+    mod, name, faulty = {
+        "dQ zeroed": (fa_mod, "flash_bwd_dq", lambda q, *a, **kw: zeros(q)),
+        "dK/dV zeroed": (fa_mod, "flash_bwd_dkv",
                          lambda q, k, *a, **kw: (zeros(k), zeros(k))),
-        "V of kv block 3 read as zeros": ("flash_forward", fwd_lost_v),
+        "V of kv block 3 read as zeros": (fa_mod, "flash_forward",
+                                          lost_v(fa_mod.flash_forward)),
+        "sparse: V of kv block 3 read as zeros": (
+            sp_mod, "flash_sparse_fwd", lost_v(sp_mod.flash_sparse_fwd)),
     }[fault]
-    saved = getattr(fa_mod, name)
-    setattr(fa_mod, name, faulty)
+    saved = getattr(mod, name)
+    setattr(mod, name, faulty)
     try:
         yield
     finally:
-        setattr(fa_mod, name, saved)
+        setattr(mod, name, saved)
 
 
 def readings(losses, norms) -> dict:
@@ -2303,6 +2523,110 @@ def train_phase() -> dict:
     return all_counts
 
 
+# gemma3-1b (hf:google/gemma-3-1b-pt): one sequence of 4096 tokens, so the
+# window-512 index prunes (at most 5 live of 32 kv blocks a q block); the
+# same 4096 tokens a step as the qwen3 phase
+GEMMA_TRAIN = dict(batch=1, seq=4096)
+# Both kernel paths are held against the plain path within TRAIN_LIMITS,
+# reasoned as for qwen3 (attention rounds to bf16 at other places; per-token
+# loss differences average over 4096 tokens), below what every planted
+# fault moves the readings by.
+# Planted faults of the sparse run (a), each with the readings it must move
+# past their limits: the two backward faults and a lost V block in the
+# dense forward (the 4 global layers) and in the sparse forward (the 22
+# local layers, where block 3 lies in the window of rows 384-1023 only).
+# A fault confined to one part of the step (dQ alone, or the 4 global
+# layers' forward) is held to the gradient norm only: one step of AdamW on
+# the parameters it touches need not move the next loss by 2^-12.  (A
+# skipped live slot, the kernel phase's fault model, leaves residuals the
+# dense backward cannot use: its gradient norm is not finite.)
+GEMMA_FAULTS = {"dQ zeroed": ("step-0 grad norm",),
+                "dK/dV zeroed": ("step-0 grad norm", "step-1 loss"),
+                "V of kv block 3 read as zeros": ("step-0 grad norm",),
+                "sparse: V of kv block 3 read as zeros": (
+                    "step-0 grad norm", "step-1 loss")}
+
+
+def gemma_train_phase() -> dict:
+    """Full-width gemma3-1b training, 4 steps each: (a) the kernels, sparse
+    on the local layers; (b) the kernels, dense-mask on every layer; (c)
+    the plain path.  (a) and (b) are held against (c), and each one's
+    launches are checked exactly -> the launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    kinds = cfg.layer_kinds()
+    n_local, n_layers = kinds.count("L"), cfg.n_layers
+    print(f"train: gemma3-1b full width ({n_layers} layers, {n_local} local "
+          f"with window {cfg.window}, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, tied embeddings {cfg.tie_embeddings}), float32 "
+          f"master weights, {cfg.compute_dtype} compute, batch "
+          f"{GEMMA_TRAIN['batch']} x {GEMMA_TRAIN['seq']} tokens", flush=True)
+    runs, totals = {}, dict.fromkeys(COUNTERS, 0)
+    want_counts = {
+        "auto": {"flash_sparse_fwd": n_local * TRAIN_STEPS,
+                 "flash_forward": (n_layers - n_local) * TRAIN_STEPS,
+                 "flash_bwd_dq": n_layers * TRAIN_STEPS,
+                 "flash_bwd_dkv": n_layers * TRAIN_STEPS},
+        "off": {"flash_sparse_fwd": 0,
+                "flash_forward": n_layers * TRAIN_STEPS,
+                "flash_bwd_dq": n_layers * TRAIN_STEPS,
+                "flash_bwd_dkv": n_layers * TRAIN_STEPS}}
+    for sparse in ("auto", "off"):
+        routes = (L.flash_plain_routes, L.sparse_plain_routes)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        runs[sparse] = train_run(dataclasses.replace(cfg, attn_sparse=sparse),
+                                 "cuda", steps=TRAIN_STEPS, ckpt_dir=None,
+                                 **GEMMA_TRAIN)
+        counts = read_counts()
+        got = {n: counts[n] for n in want_counts[sparse]}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses, norms, secs = runs[sparse]
+        print(f"train gemma3 [cuda, sparse {sparse}]: losses {losses}, grad "
+              f"norms {norms}, step seconds {[round(x, 4) for x in secs]}, "
+              f"peak memory {peak:.2f} GiB; kernel launches {got}",
+              flush=True)
+        if got != want_counts[sparse]:
+            raise SystemExit(f"gemma3 kernels launched {got}, expected "
+                             f"{want_counts[sparse]}")
+        if (L.flash_plain_routes, L.sparse_plain_routes) != routes:
+            raise SystemExit("a gemma3 layer took a plain route")
+        for n, c in counts.items():
+            totals[n] += c
+    plain = train_run(cfg, "ref", steps=TRAIN_STEPS, ckpt_dir=None,
+                      **GEMMA_TRAIN)
+    want = readings(*plain[:2])
+    print(f"train gemma3 [ref]: losses {plain[0]}, grad norms {plain[1]}, "
+          f"step seconds {[round(x, 4) for x in plain[2]]}", flush=True)
+    print("train gemma3 step seconds, sparse | dense-mask | plain: "
+          + "; ".join(f"{a:.4f} | {b:.4f} | {c:.4f}" for a, b, c in zip(
+              runs["auto"][2], runs["off"][2], plain[2])), flush=True)
+    gaps = {}
+    for sparse, (losses, norms, _) in runs.items():
+        gaps[sparse] = rel_gaps(readings(losses, norms), want)
+        print(f"train gemma3 sparse {sparse} - plain, relative: "
+              + ", ".join(f"{n} {x:.3e} (limit {TRAIN_LIMITS[n]:.3e})"
+                          for n, x in gaps[sparse].items()), flush=True)
+    moved = {}
+    for fault in GEMMA_FAULTS:
+        with planted(fault):
+            f_losses, f_norms, _ = train_run(cfg, "cuda", steps=2,
+                                             ckpt_dir=None, **GEMMA_TRAIN)
+        moved[fault] = rel_gaps(readings(f_losses, f_norms), want)
+        print(f"train gemma3 planted fault, {fault}: relative move "
+              + ", ".join(f"{n} {moved[fault][n]:.3e}" for n in want),
+              flush=True)
+    if not all(x <= TRAIN_LIMITS[n] for g in gaps.values()
+               for n, x in g.items()):
+        raise SystemExit("gemma3 kernel paths and plain path disagree")
+    for fault, reach in GEMMA_FAULTS.items():
+        if not all(moved[fault][n] > TRAIN_LIMITS[n] for n in reach):
+            raise SystemExit(f"the gemma3 limits would not catch: {fault}")
+    print(f"train gemma3: {time.perf_counter() - t0:.1f}s", flush=True)
+    return totals
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2321,10 +2645,13 @@ def main() -> None:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen),
-               decode_int8_phase(gen), moe_phase(gen), quant_moe_phase(gen),
-               quant_matmul_phase(gen), contig_phase(gen, quant=False),
-               contig_phase(gen, quant=True), verify_phase(gen, quant=False)]
+    kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
+    d256 = flash256_phase(gen)
+    dense_ms = d256[SPARSE["window"]]["flash_forward"][0]
+    kernels += [sparse_phase(gen, dense_ms), decode_int8_phase(gen),
+                moe_phase(gen), quant_moe_phase(gen), quant_matmul_phase(gen),
+                contig_phase(gen, quant=False), contig_phase(gen, quant=True),
+                verify_phase(gen, quant=False)]
     # the int8-pool verify is checked and timed here but runs on no served
     # path yet (the spec runs keep bf16 pools), so it is not in the line
     verify_phase(gen, quant=True)
@@ -2333,8 +2660,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     # launches: the sum over the main-path runs, each counted from zero
     totals = dict.fromkeys(COUNTERS, 0)
-    for phase in (lambda: serve_phase(name), train_phase, moe_serve_phase,
-                  paper_sweeps_phase):
+    for phase in (lambda: serve_phase(name), train_phase, gemma_train_phase,
+                  moe_serve_phase, paper_sweeps_phase):
         for k, v in phase().items():
             totals[k] += v
         print(f"elapsed: {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -26,8 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "matmul", "flash_attention", "moe_ffn",
-           "quant_matmul", "stream", "stencil", "chunk_scan")
+SOURCES = ("decode_attention", "matmul", "flash_attention",
+           "sparse_attention", "moe_ffn", "quant_matmul", "stream",
+           "stencil", "chunk_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +50,9 @@ SIGNATURES = {
         "flash_fwd_bf16": [_P] * 6 + [_I] * 12 + [_F, _P],
         "flash_dq_bf16": [_P] * 8 + [_I] * 12 + [_F, _P],
         "flash_dkv_bf16": [_P] * 9 + [_I] * 12 + [_F, _P],
+    },
+    "sparse_attention": {
+        "flash_sparse_fwd_bf16": [_P] * 7 + [_I] * 13 + [_F, _P],
     },
     "moe_ffn": {
         "moe_ffn_bf16": [_P] * 7 + [_I] * 6 + [_P],

@@ -21,8 +21,10 @@
 // (consecutive) or Sq/C rows apart (gapped), exactly the rows of
 // `_q_axis_layout` (:60).  dK/dV owns C kv-blocks of bkv rows, adjacent or
 // Sk/C apart (`col_ids`, :343).  Each warp owns 16 of the program's rows, so
-// a program of R rows runs R/16 warps (R <= 256), and every warp keeps its
-// rows' f32 sums in registers for the whole sweep.  The sweep stages one
+// a program of R rows runs R/16 warps (R <= 256; R <= 128 at head dim 256,
+// see `valid`), and every warp keeps its rows' f32 sums in registers for
+// the whole sweep (at D 256 the dK/dV sums are split over two blocks by
+// head-dim half, see `flash_dkv_kernel`).  The sweep stages one
 // tile of the streamed operand (K/V for the forward and dQ, Q/dO for dK/dV)
 // in shared memory at a time, and ALL the program's rows consume it before
 // the next is loaded: the staged tile is shared by the C fused blocks,
@@ -34,9 +36,11 @@
 // Inside a live block the per-element causal / window mask is exact.
 //
 // Arithmetic.  Products run on the tensor cores through mma.sync
-// m16n8k16 (bf16 x bf16 -> f32).  Q, K, V are bf16 already; the softmax
-// probabilities p, the f32 cotangent dO and dS are rounded to bf16 where
-// they enter a product, and every sum is f32.  The Pallas kernels take
+// m16n8k16 (bf16 x bf16 -> f32), with the warp tiles of `flash_tile.cuh`
+// (shared with the block-sparse forward, `sparse_attention.cu`).  Q, K,
+// V are bf16 already; the softmax probabilities p, the f32 cotangent dO
+// and dS are rounded to bf16 where they enter a product, and every sum is
+// f32.  The Pallas kernels take
 // those products in f32; the difference is one bf16 rounding of an
 // operand, which the card check's tolerance states.
 //
@@ -56,12 +60,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr float NEG = -1e30f;      // the Pallas kernels' mask sentinel
-constexpr int PAD = 8;             // shared-memory row padding (bf16)
+using namespace ft;
 
 struct Geo {
   int h, hkv, sq, sk;              // heads, kv heads, q rows, kv rows
@@ -69,49 +72,6 @@ struct Geo {
   int causal, window;              // window 0 = none
   float scale;
 };
-
-// D[16x8] += A[16x16] * B[16x8]; fragment layouts as the PTX ISA gives
-// them for mma.m16n8k16 with lane = 4 * g + t:
-//   a0 (row g, cols 2t..2t+1)  a1 (row g+8, same)  a2 (row g, cols 8+2t..)
-//   a3 (row g+8, cols 8+2t..); b0 (k 2t..2t+1, col g)  b1 (k 8+2t.., col g);
-//   d0, d1 (row g, cols 2t, 2t+1)  d2, d3 (row g+8, same).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two adjacent bf16 (p[0] low, p[1] high)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 one row apart (p[0] low, p[ld] high)
-__device__ __forceinline__ uint32_t ld_pair_col(const bf16* p, int ld) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // the per-element causal / window mask of the Pallas kernels
 __device__ __forceinline__ bool allowed(int row, int col, const Geo& g) {
@@ -125,85 +85,6 @@ __device__ __forceinline__ int prog_row(int r, int p, int blk, int c,
   return gapped ? (r / blk) * seg + p * blk + r % blk : p * c * blk + r;
 }
 
-// stage `rows` rows of D bf16 (global row of local row r: rowmap(r)) into
-// shared memory with a padded stride, 16 bytes a thread
-template <int D, typename RowMap>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
-                                           int rows, RowMap rowmap) {
-  constexpr int LD = D + PAD, VEC = D / 8;
-  for (int i = threadIdx.x; i < rows * VEC; i += blockDim.x) {
-    const int r = i / VEC, cv = (i % VEC) * 8;
-    *reinterpret_cast<uint4*>(&dst[r * LD + cv]) =
-        *reinterpret_cast<const uint4*>(&src[(size_t)rowmap(r) * D + cv]);
-  }
-}
-
-// the same for f32 rows, rounded to bf16 on the way in
-template <int D, typename RowMap>
-__device__ __forceinline__ void stage_f32(bf16* dst, const float* src,
-                                          int rows, RowMap rowmap) {
-  constexpr int LD = D + PAD, VEC = D / 8;
-  for (int i = threadIdx.x; i < rows * VEC; i += blockDim.x) {
-    const int r = i / VEC, cv = (i % VEC) * 8;
-    const float* s = &src[(size_t)rowmap(r) * D + cv];
-    const float4 x = *reinterpret_cast<const float4*>(s);
-    const float4 y = *reinterpret_cast<const float4*>(s + 4);
-    uint4 u;
-    u.x = pack_bf16(x.x, x.y);
-    u.y = pack_bf16(x.z, x.w);
-    u.z = pack_bf16(y.x, y.y);
-    u.w = pack_bf16(y.z, y.w);
-    *reinterpret_cast<uint4*>(&dst[r * LD + cv]) = u;
-  }
-}
-
-// s[16 x N] = X[rows r0.., D] . Y[rows n.., D]^T for one warp; X and Y are
-// row-major in shared memory with stride LD
-template <int D, int N>
-__device__ __forceinline__ void warp_xyt(float (&s)[N / 8][4], const bf16* x,
-                                         const bf16* y, int r0) {
-  constexpr int LD = D + PAD;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const bf16* xa = x + (r0 + g) * LD + ks * 16 + 2 * t;
-    const uint32_t a0 = ld_pair(xa), a1 = ld_pair(xa + 8 * LD);
-    const uint32_t a2 = ld_pair(xa + 8), a3 = ld_pair(xa + 8 * LD + 8);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const bf16* yb = y + (j * 8 + g) * LD + ks * 16 + 2 * t;
-      mma_bf16(s[j], a0, a1, a2, a3, ld_pair(yb), ld_pair(yb + 8));
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x K] . Y[K rows, D] for one warp: P is the warp's
-// own C fragments of a [16 x K] product (p[K/8][4]), reused as A fragments
-// (the C layout of two adjacent n8 tiles is the A layout of one k16 step);
-// Y is row-major in shared memory with stride LD
-template <int D, int K>
-__device__ __forceinline__ void warp_py(float (&acc)[D / 8][4],
-                                        const float (&p)[K / 8][4],
-                                        const bf16* y) {
-  constexpr int LD = D + PAD;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t a0 = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* yb = y + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
-      mma_bf16(acc[jd], a0, a1, a2, a3, ld_pair_col(yb + jd * 8, LD),
-               ld_pair_col(yb + jd * 8 + 8 * LD, LD));
-  }
-}
-
 // -- forward ------------------------------------------------------------------
 
 // one block per (q-program, head, batch); R = C*bq rows, 16 per warp
@@ -212,7 +93,7 @@ __global__ void __launch_bounds__(NW * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ mo, float* __restrict__ lo, Geo g) {
-  constexpr int LD = D + PAD, KT = NW >= 16 ? 32 : 64, R = NW * 16;
+  constexpr int LD = D + PAD, KT = kv_tile(D, NW), R = NW * 16;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);          // R x LD
   bf16* sk = sq + R * LD;                            // KT x LD
@@ -221,7 +102,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qi = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int kvh = hh / (g.h / g.hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int gr = lane >> 2, r0 = warp * 16;
   const int sg = g.sq / g.c;
   const size_t qoff = (size_t)(bb * g.h + hh) * g.sq;
   const size_t kvoff = (size_t)(bb * g.hkv + kvh) * g.sk * D;
@@ -253,62 +134,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       float s[KT / 8][4];
       warp_xyt<D, KT>(s, sq, sk, r0);
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + j * 8 + 2 * t + e;
-          s[j][e] = allowed(row0, col, g) ? s[j][e] * g.scale : NEG;
-          s[j][2 + e] = allowed(row1, col, g) ? s[j][2 + e] * g.scale : NEG;
-          mx0 = fmaxf(mx0, s[j][e]);
-          mx1 = fmaxf(mx1, s[j][2 + e]);
-        }
-      mx0 = quad_max(mx0);
-      mx1 = quad_max(mx1);
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + j * 8 + 2 * t + e;
-          s[j][e] = allowed(row0, col, g) ? expf(s[j][e] - mx0) : 0.f;
-          s[j][2 + e] = allowed(row1, col, g) ? expf(s[j][2 + e] - mx1) : 0.f;
-          rs0 += s[j][e];
-          rs1 += s[j][2 + e];
-        }
-      const float al0 = expf(m0 - mx0), al1 = expf(m1 - mx1);
-      l0 = l0 * al0 + quad_sum(rs0);
-      l1 = l1 * al1 + quad_sum(rs1);
-      m0 = mx0;
-      m1 = mx1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[j][0] *= al0;
-        acc[j][1] *= al0;
-        acc[j][2] *= al1;
-        acc[j][3] *= al1;
-      }
-      warp_py<D, KT>(acc, s, sv);
+      softmax_step<D, KT>(s, acc, m0, m1, l0, l1, row0, row1, c0, g.scale,
+                          sv, [&](int row, int col) {
+                            return allowed(row, col, g);
+                          });
     }
   }
-
-  const float lg0 = l0 == 0.f ? 1.f : l0, lg1 = l1 == 0.f ? 1.f : l1;
-  float* o0 = o + (qoff + row0) * D + 2 * t;
-  float* o1 = o + (qoff + row1) * D + 2 * t;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<float2*>(o0 + j * 8) =
-        make_float2(acc[j][0] / lg0, acc[j][1] / lg0);
-    *reinterpret_cast<float2*>(o1 + j * 8) =
-        make_float2(acc[j][2] / lg1, acc[j][3] / lg1);
-  }
-  if (mo != nullptr && t == 0) {
-    mo[qoff + row0] = m0;
-    mo[qoff + row1] = m1;
-    lo[qoff + row0] = l0;
-    lo[qoff + row1] = l1;
-  }
+  store_o<D>(o + qoff * D, mo == nullptr ? nullptr : mo + qoff,
+             lo == nullptr ? nullptr : lo + qoff, acc, m0, m1, l0, l1, row0,
+             row1);
 }
 
 // -- dQ -----------------------------------------------------------------------
@@ -321,7 +155,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const float* __restrict__ m, const float* __restrict__ l,
                 const float* __restrict__ delta, float* __restrict__ dq,
                 Geo g) {
-  constexpr int LD = D + PAD, KT = NW >= 16 ? 32 : 64, R = NW * 16;
+  constexpr int LD = D + PAD, KT = kv_tile(D, NW), R = NW * 16;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);          // R x LD
   bf16* sdo = sq + R * LD;                           // R x LD
@@ -399,9 +233,14 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // -- dK/dV --------------------------------------------------------------------
 
-// one block per (kv-program, q-head, batch); R = C*bkv kv rows, 16 per
-// warp; the q sweep stages QT rows of q, do, m, l, delta at a time
-template <int D, int NW>
+// one block per (kv-program, q-head, batch) and head-dim part; R = C*bkv kv
+// rows, 16 per warp; the q sweep stages QT rows of q, do, m, l, delta at a
+// time.  SPLIT = 2 (head dim 256): dK and dV of 16 rows at D 256 would
+// take 256 f32 registers a thread, over the 255 cap, so two blocks share a
+// program, each keeps the dK and dV columns of one half of D, and both
+// form the full-D products S^T and dP^T (the price: those two of the four
+// products run twice)
+template <int D, int NW, int SPLIT>
 __global__ void __launch_bounds__(NW * 32)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ dout,
@@ -418,7 +257,9 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sl = sm + QT;
   float* sdl = sl + QT;
 
-  const int ki = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  constexpr int DO = D / SPLIT;                      // output columns
+  const int ki = blockIdx.x / SPLIT, c_out = (blockIdx.x % SPLIT) * DO;
+  const int hh = blockIdx.y, bb = blockIdx.z;
   const int kvh = hh / (g.h / g.hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, t = lane & 3, r0 = warp * 16;
@@ -432,9 +273,9 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_bf16<D>(sv, v + kvoff, R, kcol);
 
   const int col0 = kcol(r0 + gr), col1 = kcol(r0 + gr + 8);
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
     dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
     dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
   }
@@ -481,18 +322,18 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dp[j][e] = p0 * (dp[j][e] - sdl[qr]);
           dp[j][2 + e] = p1 * (dp[j][2 + e] - sdl[qr]);
         }
-      warp_py<D, QT>(dv, s, sdo);       // dV += P^T . dO
-      warp_py<D, QT>(dk, dp, sq);       // dK += dS^T . Q
+      warp_py<D, QT, DO>(dv, s, sdo + c_out);   // dV += P^T . dO
+      warp_py<D, QT, DO>(dk, dp, sq + c_out);   // dK += dS^T . Q
     }
   }
 
   const size_t koff = (size_t)(bb * g.h + hh) * g.sk;   // per-q-head rows
-  float* k0 = dkh + (koff + col0) * D + 2 * t;
-  float* k1 = dkh + (koff + col1) * D + 2 * t;
-  float* v0 = dvh + (koff + col0) * D + 2 * t;
-  float* v1 = dvh + (koff + col1) * D + 2 * t;
+  float* k0 = dkh + (koff + col0) * D + c_out + 2 * t;
+  float* k1 = dkh + (koff + col1) * D + c_out + 2 * t;
+  float* v0 = dvh + (koff + col0) * D + c_out + 2 * t;
+  float* v1 = dvh + (koff + col1) * D + c_out + 2 * t;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
     *reinterpret_cast<float2*>(k0 + j * 8) =
         make_float2(dk[j][0] * g.scale, dk[j][1] * g.scale);
     *reinterpret_cast<float2*>(k1 + j * 8) =
@@ -505,10 +346,10 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // -- launchers ----------------------------------------------------------------
 
 constexpr int fwd_smem(int d, int nw) {
-  return (nw * 16 + 2 * (nw >= 16 ? 32 : 64)) * (d + PAD) * 2;
+  return (nw * 16 + 2 * kv_tile(d, nw)) * (d + PAD) * 2;
 }
 constexpr int dq_smem(int d, int nw) {
-  return (2 * nw * 16 + 2 * (nw >= 16 ? 32 : 64)) * (d + PAD) * 2;
+  return (2 * nw * 16 + 2 * kv_tile(d, nw)) * (d + PAD) * 2;
 }
 constexpr int dkv_smem(int d, int nw) {
   return (2 * nw * 16 + 2 * 32) * (d + PAD) * 2 + 3 * 32 * 4;
@@ -548,11 +389,12 @@ template <int D, int NW>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* m, const void* l, const void* delta, void* dkh,
                void* dvh, int b, const Geo& g, cudaStream_t st) {
+  constexpr int SPLIT = D >= 256 ? 2 : 1;
   const int smem = dkv_smem(D, NW);
-  cudaFuncSetAttribute(flash_dkv_kernel<D, NW>,
+  cudaFuncSetAttribute(flash_dkv_kernel<D, NW, SPLIT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(g.sk / (g.c * g.bkv), g.h, b);
-  flash_dkv_kernel<D, NW><<<grid, NW * 32, smem, st>>>(
+  dim3 grid(g.sk / (g.c * g.bkv) * SPLIT, g.h, b);
+  flash_dkv_kernel<D, NW, SPLIT><<<grid, NW * 32, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
@@ -563,10 +405,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // the geometry the kernels take; the wrapper raises on anything else.
 // q-axis programs (forward, dQ): C*bq rows, kv sub-tiles of up to 64 rows;
-// kv-axis programs (dK/dV): C*bkv rows, q sub-tiles of 32 rows
+// kv-axis programs (dK/dV): C*bkv rows, q sub-tiles of 32 rows.  Head dim
+// 256 holds programs of 64 and 128 rows only: at 256 rows dQ's shared
+// memory ((512 + 64) x 264 x 2 bytes) passes the 227 KB a block may have,
+// and 16 warps leave 128 registers a thread for a 128-register sum
 bool valid(int d, int b, const Geo& g, bool kv_axis) {
   const int rows = g.c * (kv_axis ? g.bkv : g.bq);
-  return (d == 64 || d == 128) && (rows == 64 || rows == 128 || rows == 256)
+  return (d == 64 || d == 128 || d == 256)
+         && (rows == 64 || rows == 128 || (rows == 256 && d < 256))
          && b > 0 && g.hkv > 0 && g.h % g.hkv == 0 && g.c > 0
          && g.bq % 32 == 0 && g.bkv % (kv_axis ? 16 : 64) == 0
          && g.sq % g.bq == 0 && g.sk % g.bkv == 0
@@ -590,6 +436,8 @@ Geo make_geo(int h, int hkv, int sq, int sk, int c, int bq, int bkv,
     case 128064: return FN(128, 4);                                          \
     case 128128: return FN(128, 8);                                          \
     case 128256: return FN(128, 16);                                         \
+    case 256064: return FN(256, 4);                                          \
+    case 256128: return FN(256, 8);                                          \
     default: return (int)cudaErrorInvalidValue;                              \
   }
 

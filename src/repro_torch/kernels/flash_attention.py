@@ -19,9 +19,12 @@ shapes of the call; the source's note says what the design does about it.
 
 On CPU tensors each wrapper computes its plain version (`ref.flash_*`); on
 CUDA tensors it launches the kernel or raises.  The kernels take bf16 q,
-k, v, head dims 64 and 128, programs of 64, 128 or 256 rows (16 a warp),
-``bkv`` a multiple of 64 on the q axis and ``bq`` a multiple of 32 on the
-kv axis; anything else raises ``ValueError``.
+k, v, head dims 64, 128 and 256, programs of 64, 128 or 256 rows (16 a
+warp; 64 or 128 at head dim 256, where 256 rows pass the shared memory
+and registers a block has), ``bkv`` a multiple of 64 on the q axis and
+``bq`` a multiple of 32 on the kv axis; anything else raises
+``ValueError``.  At head dim 256 the dK/dV pass runs two blocks a program,
+one per half of the head dim.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 PROGRAM_ROWS = (64, 128, 256)       # C * block rows a thread block holds
 
 # kernel launches since the last reset, one count per kernel
@@ -61,9 +64,11 @@ def takes(d: int, degree: int, bq: int, bkv: int, *, kv_axis: bool) -> bool:
     """Whether the kernels hold head dim ``d`` and a program of ``degree``
     blocks of ``bq`` q rows (``bkv`` kv rows for the dK/dV pass,
     ``kv_axis``); the layer dispatch sends any other geometry to the plain
-    path."""
+    path.  Head dim 256 holds programs of 64 and 128 rows only (`valid` in
+    the source states the same rule)."""
     rows = degree * (bkv if kv_axis else bq)
-    return (d in HEAD_DIMS and rows in PROGRAM_ROWS and bq % 32 == 0
+    return (d in HEAD_DIMS and rows in PROGRAM_ROWS
+            and (rows < 256 or d < 256) and bq % 32 == 0
             and bkv % (16 if kv_axis else 64) == 0)
 
 
@@ -92,7 +97,8 @@ def _launchable(tensors, cfg: CoarseningConfig, d, bq, bkv, *,
     if not takes(d, cfg.degree, bq, bkv, kv_axis=kv_axis):
         raise ValueError(
             f"flash kernel holds head dims {HEAD_DIMS}, programs of "
-            f"{PROGRAM_ROWS} rows, bq % 32 == 0 and bkv % "
+            f"{PROGRAM_ROWS} rows (up to 128 at head dim 256), bq % 32 == 0 "
+            f"and bkv % "
             f"{16 if kv_axis else 64} == 0; got D={d}, {cfg.label} x "
             f"{bkv if kv_axis else bq} = {rows} rows, bq={bq}, bkv={bkv}")
     return dev

@@ -6,11 +6,11 @@
 Tensors on the CPU take each kernel's plain PyTorch version; tensors on a
 CUDA device take the hand-written kernel (or the call raises).
 
-`flash_attention` is differentiable (a `torch.autograd.Function` whose
-backward runs the dQ and dK/dV kernels).  The other ops have no backward:
-their kernels fill outputs that autograd cannot see through, so they
-raise when grad mode is on and an input requires grad, instead of
-silently dropping the gradient.
+`flash_attention` and `flash_attention_sparse` are differentiable (a
+`torch.autograd.Function` whose backward runs the dQ and dK/dV
+kernels).  The other ops have no backward: their kernels fill outputs
+that autograd cannot see through, so they raise when grad mode is on and
+an input requires grad, instead of silently dropping the gradient.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gather_stream as _gather
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_ffn as _moe
+from repro_torch.kernels import ref
+from repro_torch.kernels import sparse_attention as _sparse
 from repro_torch.kernels import stencil as _stencil
 
 
@@ -190,3 +192,82 @@ def flash_attention(q, k, v, cfg: CoarseningConfig | str = BASE, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, cfg, bwd_cfg, kw)
     return _flash.flash_forward(q, k, v, cfg, **kw)
+
+
+class _FlashSparse(torch.autograd.Function):
+    """`repro/kernels/ops.py:283-356` `_flash_sparse_fn`: the forward runs
+    the block-sparse kernel with residuals and saves (q, k, v, o, m, l).
+    The backward reuses the DENSE backward kernels on those residuals
+    (the index covers the pattern's mask exactly, so (m, l) are the
+    dense-mask forward's): delta = sum(g * o), dQ at `BASE` (``cfg``'s
+    degree is a live-slot degree, not a q-row one) and dK/dV at
+    ``bwd_cfg``, under the same causal / window mask.  A global-stride
+    pattern, which the dense kernels cannot express, differentiates the
+    plain dense-mask oracle (`ref.sparse_attention`) instead, as the
+    reference's rule does (:329-337): there the reference, too, computes
+    outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, idx, cfg, bwd_cfg, kw):
+        o, m, l = _sparse.flash_sparse_fwd(q, k, v, idx, cfg, residuals=True,
+                                           **kw)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.bwd_cfg, ctx.kw = bwd_cfg, kw
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, m, l = ctx.saved_tensors
+        kw = dict(ctx.kw)
+        gs = kw.pop("global_stride")
+        g = g.float().contiguous()
+        if gs:
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                o_ref = ref.sparse_attention(
+                    *qkv, causal=kw["causal"], window=kw["window"],
+                    global_stride=gs, scale=kw["scale"])
+                dq, dk, dv = torch.autograd.grad(o_ref, qkv, g)
+        else:
+            delta = (g * o).sum(dim=-1)                # (B,H,Sq) f32
+            dq = _flash.flash_bwd_dq(q, k, v, g, m, l, delta, BASE, **kw)
+            dk, dv = _flash.flash_bwd_dkv(q, k, v, g, m, l, delta,
+                                          ctx.bwd_cfg, **kw)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def flash_attention_sparse(q, k, v, cfg: CoarseningConfig | str = BASE, *,
+                           bwd_cfg: CoarseningConfig | str | None = None,
+                           bq: int = 128, bkv: int = 128, causal: bool = True,
+                           window: int | None = None,
+                           global_stride: int | None = None,
+                           scale: float | None = None,
+                           backend: str = "cuda"):
+    """Block-sparse flash attention over the per-q-block live-KV index
+    (`repro/kernels/ops.py:368-409`).  q: (B,H,Sq,D); k, v: (B,Hkv,Sk,D)
+    -> (B,H,Sq,D) float32.
+
+    Each q block walks only the kv blocks its index row lists under the
+    pattern {``causal``, ``window``, ``global_stride`` columns}; ``cfg``
+    coarsens over the live-slot axis and ``bwd_cfg`` (default "auto") the
+    dK/dV pass.  ``backend="ref"`` is the dense-mask oracle.  The index is
+    built on the host once per geometry and uploaded once per device.  A
+    call with grad off, or on inputs that need no gradient, runs the
+    kernel without residuals."""
+    if backend == "ref":
+        return ref.sparse_attention(q, k, v, causal=causal, window=window,
+                                    global_stride=global_stride, scale=scale)
+    if backend != "cuda":
+        raise ValueError(f"backend must be 'ref' or 'cuda', got {backend!r}")
+    cfg = resolve(cfg)
+    idx = _sparse.device_index(q.shape[2], k.shape[2], bq, bkv,
+                               causal=causal, window=window,
+                               global_stride=global_stride, device=q.device)
+    kw = dict(bq=bq, bkv=bkv, causal=causal, window=window, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        bwd_cfg = resolve("auto" if bwd_cfg is None else bwd_cfg)
+        return _FlashSparse.apply(q, k, v, idx, cfg, bwd_cfg,
+                                  dict(kw, global_stride=global_stride))
+    return _sparse.flash_sparse_fwd(q, k, v, idx, cfg,
+                                    global_stride=global_stride, **kw)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -338,6 +339,87 @@ def flash_bwd_dkv(q, k, v, do, m, l, delta, *, degree=1, gapped=False,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     return (dk.reshape(b, hkv, h // hkv, sk, d).sum(dim=2),
             dv.reshape(b, hkv, h // hkv, sk, d).sum(dim=2))
+
+
+# -- block-sparse flash attention (`repro/kernels/sparse_attention.py`) -------
+
+def sparse_attention(q, k, v, *, causal=True, window=None,
+                     global_stride=None, scale=None):
+    """The dense-mask oracle (`sparse_attention.py:157-178`
+    `ref_sparse_attention`): q (B,H,Sq,D), k, v (B,Hkv,Sk,D) -> (B,H,Sq,D)
+    float32 under the pattern's element mask (causal, window, global-stride
+    columns).  Differentiable: the gradient of a global-stride pattern in
+    training (`ops.flash_attention_sparse`)."""
+    from repro_torch.kernels.sparse_attention import _element_mask
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _element_mask(torch.arange(sq, device=q.device)[:, None],
+                         torch.arange(sk, device=q.device)[None, :],
+                         causal=causal, window=window,
+                         global_stride=global_stride)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+
+
+def flash_sparse(q, k, v, idx, *, degree=1, gapped=False, bq=128, bkv=128,
+                 causal=True, window=None, global_stride=None, scale=None):
+    """The block-sparse forward's function (`sparse_attention.py:183`
+    `make_kernel`) as a walk of the live index in the kernel's slot order:
+    step si takes slot si*C + j (consecutive) or j*seg + si (gapped, seg
+    = max_live / C) for j < C, each through the online softmax of
+    (:236-252), vectorised over the q blocks; a NULL slot adds exactly
+    nothing (p 0, rescale 1, its V read as 0), which is the kernel's skip.
+    idx: (Sq/bq, max_live) int (array or tensor) -> (o (B,H,Sq,D), m, l
+    (B,H,Sq)) float32, with the reference's ``l == 0`` guard (:262-265)."""
+    from repro_torch.kernels.sparse_attention import _element_mask
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g, nq, nkb = h // hkv, sq // bq, sk // bkv
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.tensor(np.asarray(idx))
+    idx = idx.to(device=q.device, dtype=torch.long)
+    max_live = idx.shape[1]
+    if max_live % degree:
+        raise ValueError("live-slot list not tileable by degree")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    seg = max_live // degree
+    qf = q.float().reshape(b, hkv, g, nq, bq, d)
+    kb = k.float().reshape(b, hkv, nkb, bkv, d)
+    vb = v.float().reshape(b, hkv, nkb, bkv, d)
+    rows = torch.arange(sq, device=q.device).reshape(nq, bq, 1)
+    cols0 = torch.arange(bkv, device=q.device)
+    m = torch.full((b, hkv, g, nq, bq), NEG, device=q.device)
+    l = torch.zeros((b, hkv, g, nq, bq), device=q.device)
+    acc = torch.zeros((b, hkv, g, nq, bq, d), device=q.device)
+    for si in range(seg):
+        for j in range(degree):
+            lb = idx[:, j * seg + si if gapped else si * degree + j]
+            live = lb >= 0                                   # (nq,)
+            lbc = lb.clamp(min=0)
+            cols = (lbc[:, None] * bkv + cols0)[:, None, :]  # (nq, 1, bkv)
+            mask = _element_mask(rows, cols, causal=causal, window=window,
+                                 global_stride=global_stride) \
+                & live[:, None, None]                        # (nq, bq, bkv)
+            kk = kb[:, :, lbc]                               # (b,hkv,nq,bkv,d)
+            vv = torch.where(live[:, None, None], vb[:, :, lbc], 0.0)
+            s = torch.einsum("bhgqrd,bhqkd->bhgqrk", qf, kk) * scale
+            s = torch.where(mask, s, torch.full_like(s, NEG))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None]) * mask
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqrk,bhqkd->bhgqrd", p, vv)
+            m = m_new
+    lg = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = (acc / lg[..., None]).reshape(b, h, sq, d)
+    return o, m.reshape(b, h, sq), l.reshape(b, h, sq)
 
 
 # -- the paper's microbenchmarks (`repro/kernels/ew_stream.py:37-104`,

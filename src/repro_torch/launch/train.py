@@ -4,21 +4,24 @@ mesh): data pipeline -> train step -> checkpoints, with the step watchdog,
 preemption handling and retry, in the reference's order.
 
 Attention takes the hand-written flash kernels (forward, dQ, dK/dV) with
-``--backend cuda``, the default; ``--backend ref`` takes the plain
-chunked attention.  The FFN always takes the plain float32 product
-(``ffn_backend="ref"``, as the reference trainer's default): the matmul
-kernel has no backward.  Master weights and the AdamW state are float32,
+``--backend cuda``, the default, and the block-sparse flash forward on a
+windowed (local) layer unless ``--attn-sparse off``; ``--backend ref``
+takes the plain chunked attention.  The FFN always takes the plain float32
+product (``ffn_backend="ref"``, as the reference trainer's default): the
+matmul kernel has no backward.  Master weights and the AdamW state are float32,
 compute is the config's dtype (bf16).  Runs on the card unless
 ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 4 --batch 4 --seq 1024
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+      --steps 4 --batch 1 --seq 4096
+
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 3 --batch 2 --seq 64
 
-Not ported: ``--tune``, ``--attn-sparse``, ``--attn-global-stride``,
-``--quant`` and remat ``"dots"``.
+Not ported: ``--tune``, ``--quant`` and remat ``"dots"``.
 """
 from __future__ import annotations
 
@@ -160,6 +163,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="cuda", choices=BACKENDS,
                     help="cuda = the flash attention kernels (forward, dQ, "
                          "dK/dV); ref = the plain chunked attention")
+    ap.add_argument("--attn-sparse", default=None, choices=["auto", "off"],
+                    help="block-sparse dispatch for local-attention layers "
+                         "(window set): 'auto' routes eligible geometries "
+                         "through the live-index kernel, 'off' pins the "
+                         "dense-mask kernel")
+    ap.add_argument("--attn-global-stride", type=int, default=None,
+                    help="LongFormer-style global columns on local layers: "
+                         "every Nth kv position stays visible past the "
+                         "window (needs a windowed arch; training through "
+                         "a strided pattern differentiates the plain "
+                         "dense-mask attention)")
     return ap
 
 
@@ -168,6 +182,11 @@ def main(argv=None) -> list:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.attn_sparse:
+        cfg = dataclasses.replace(cfg, attn_sparse=args.attn_sparse)
+    if args.attn_global_stride:
+        cfg = dataclasses.replace(cfg,
+                                  attn_global_stride=args.attn_global_stride)
     losses, _ = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                       ckpt_dir=args.ckpt_dir, n_micro=args.n_micro,
                       remat=args.remat, lr=args.lr,

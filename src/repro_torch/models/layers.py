@@ -20,10 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.coarsening import resolve
+from repro_torch.core.coarsening import BASE, resolve
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sparse_attention as _sparse
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtypes import QTensor, asdense, dequantize_kv
 
@@ -32,11 +33,13 @@ BACKENDS = ("ref", "cuda")
 
 # Dispatches of CPU tensors sent to the plain path because the port's
 # kernel does not hold a geometry that the reference's kernel takes (the
-# `*_kernel_takes` rules below), counted per call: flash head dims other
-# than 64 / 128, verify with T*G > 32 query rows a kv head, paged decode
-# with G > 8.  On the card such a geometry raises NotImplementedError
+# `*_kernel_takes` rules below), counted per call: flash and block-sparse
+# flash head dims other than 64 / 128 / 256 (or programs past 128 rows at
+# 256), verify with T*G > 32 query rows a kv head, paged decode with
+# G > 8.  On the card such a geometry raises NotImplementedError
 # (`_not_held`): the plain path never stands in for a kernel there.
 flash_plain_routes = 0
+sparse_plain_routes = 0
 decode_plain_routes = 0
 paged_plain_routes = 0
 verify_plain_routes = 0
@@ -56,6 +59,16 @@ def flash_kernel_takes(d: int, bq: int, bkv: int, cfg, bwd_cfg) -> bool:
     rows (dK/dV)."""
     return (_flash.takes(d, cfg.degree, bq, bkv, kv_axis=False)
             and _flash.takes(d, bwd_cfg.degree, bq, bkv, kv_axis=True))
+
+
+def sparse_kernel_takes(d: int, bq: int, bkv: int, cfg, bwd_cfg) -> bool:
+    """Whether the block-sparse forward holds head dim ``d`` with q blocks
+    of ``bq`` rows (``cfg`` is a live-slot degree, which any geometry
+    holds once it divides max_live) and its backward the dense dQ at
+    `BASE` and dK/dV at ``bwd_cfg``."""
+    del cfg
+    return (_sparse.takes(d, bq, bkv)
+            and flash_kernel_takes(d, bq, bkv, BASE, bwd_cfg))
 
 
 def paged_kernel_takes(h: int, hkv: int, d: int, ps: int, elem: int) -> bool:
@@ -207,31 +220,64 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
     needs Sq == Sk and ``pos_trivial`` (q row i IS global row i).
     Everything else takes `mea_attention`, as in the reference.  A
     geometry the port's kernels do not hold (`flash_kernel_takes`: head
-    dims 64 and 128, programs of 64-256 rows) raises NotImplementedError
-    on the card and takes `mea_attention` on CPU tensors, counted in
-    ``flash_plain_routes``.
+    dims 64, 128 and 256, programs of 64-256 rows, up to 128 at 256)
+    raises NotImplementedError on the card and takes `mea_attention` on
+    CPU tensors, counted in ``flash_plain_routes``.
 
-    Not ported: the block-sparse branch (:323-346, windowed layers with
-    ``sparse != "off"``) and the global-stride branch (:348-360).  Where
-    the reference would take either, this raises NotImplementedError; it
-    never answers with the dense kernel instead.
+    A causal ``window`` under that rule with ``sparse != "off"`` takes the
+    block-sparse kernel (`ops.flash_attention_sparse`, :323-346): each q
+    block walks only the kv blocks its live index lists; ``sparse_cfg``
+    coarsens over the live-slot axis ("auto" is `BASE`), and an explicit
+    degree that does not divide the index width falls through to the dense
+    path, as in the reference.  A geometry `sparse_kernel_takes` does not
+    hold raises on the card and takes the dense-mask oracle on CPU
+    tensors, counted in ``sparse_plain_routes``.  ``global_stride`` adds
+    LongFormer-style global columns to a window; where the sparse kernel
+    does not take such a pattern it takes the dense-mask oracle
+    (:348-360), since neither the dense kernel nor `mea_attention` can
+    express the strided columns.
     """
-    global flash_plain_routes
+    global flash_plain_routes, sparse_plain_routes
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     kernel = _uses_kernel(backend)
+
+    def bhsd(x):
+        return x.transpose(1, 2).contiguous()
+
     if (kernel and sparse != "off" and k_len is None and causal
             and window is not None and sq == sk and pos_trivial
-            and h % hkv == 0 and sq % min(bq, sq) == 0
-            and sk % min(bkv, sk) == 0):
-        raise NotImplementedError(
-            "block-sparse flash attention (a window with sparse="
-            f"{sparse!r}) is not ported yet; pass sparse='off' for the "
-            "dense kernel")
+            and h % hkv == 0):
+        blk_q, blk_k = min(bq, sq), min(bkv, sk)
+        if sq % blk_q == 0 and sk % blk_k == 0:
+            ml = _sparse.max_live_blocks(sq, sk, blk_q, blk_k, causal=True,
+                                         window=window,
+                                         global_stride=global_stride)
+            rsp, rbwd = resolve(sparse_cfg), resolve(bwd_cfg)
+            # an explicit slot degree the padded index can't tile falls
+            # through to the dense path ("auto" is BASE, which fits)
+            if ml % rsp.degree == 0:
+                kw = dict(bq=blk_q, bkv=blk_k, causal=True, window=window,
+                          global_stride=global_stride, scale=scale)
+                if sparse_kernel_takes(d, blk_q, blk_k, rsp, rbwd):
+                    o = ops.flash_attention_sparse(
+                        bhsd(q), bhsd(k), bhsd(v), rsp, bwd_cfg=rbwd, **kw)
+                else:
+                    _not_held(q, f"block-sparse flash attention at head dim "
+                              f"{d}, q blocks of {blk_q} rows, dK/dV "
+                              f"programs of {rbwd.degree}x{blk_k} rows")
+                    sparse_plain_routes += 1
+                    o = ops.flash_attention_sparse(bhsd(q), bhsd(k), bhsd(v),
+                                                   backend="ref", **kw)
+                return o.transpose(1, 2).to(q.dtype)
     if (global_stride and window is not None and k_len is None
             and sq == sk and (pos_trivial or q_pos is None)):
-        raise NotImplementedError("global-stride attention columns are "
-                                  "not ported yet")
+        # the strided global columns exist in no other path's mask: the
+        # dense-mask oracle (dense cost, exact semantics)
+        o = ops.flash_attention_sparse(
+            bhsd(q), bhsd(k), bhsd(v), backend="ref", causal=causal,
+            window=window, global_stride=global_stride, scale=scale)
+        return o.transpose(1, 2).to(q.dtype)
     if kernel and k_len is None:
         blk_q, blk_k = min(bq, sq), min(bkv, sk)
         ok = h % hkv == 0 and sq % blk_q == 0 and sk % blk_k == 0
@@ -248,9 +294,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
                 flash_plain_routes += 1
             elif tiles:
                 o = ops.flash_attention(
-                    q.transpose(1, 2).contiguous(),
-                    k.transpose(1, 2).contiguous(),
-                    v.transpose(1, 2).contiguous(), rcfg, bwd_cfg=rbwd,
+                    bhsd(q), bhsd(k), bhsd(v), rcfg, bwd_cfg=rbwd,
                     bq=blk_q, bkv=blk_k, causal=causal, window=window,
                     scale=scale)
                 return o.transpose(1, 2).to(q.dtype)

@@ -9,7 +9,8 @@
   `torch.autograd.Function`) against ``jax.grad`` through the reference's
   custom VJP, with the loss ``sum(sin(o))`` of the reference's own test.
 * The layer dispatch `models.layers.flash_attention`: the kernel branch,
-  the `mea_attention` fallbacks, and the branches not ported (which raise).
+  the `mea_attention` fallbacks, and the block-sparse and global-stride
+  branches (held against the reference in `tests/test_torch_sparse.py`).
 * The gradient-less kernel wrappers refuse to run under autograd.
 
 Inputs are float32, made with numpy from a seed, at the sizes of
@@ -198,18 +199,25 @@ def test_layer_dispatch_fallbacks_match_reference(case):
 
 
 def test_unported_branches_raise():
+    """The block-sparse and global-stride branches, once unported (they
+    raised), now answer as the reference's plain path does; sparse="off"
+    pins the dense kernel for a window, as the reference."""
     q, k, v = _t(*_bshd())
-    with pytest.raises(NotImplementedError, match="block-sparse"):
-        TL.flash_attention(q, k, v, causal=True, window=16,
+    want = TL.mea_attention(q, k, v, causal=True, window=16)
+    o = TL.flash_attention(q, k, v, causal=True, window=16,
                            pos_trivial=True, backend="cuda", bq=BQ, bkv=BKV)
-    with pytest.raises(NotImplementedError, match="global-stride"):
-        TL.flash_attention(q, k, v, causal=True, window=16, global_stride=8,
+    np.testing.assert_allclose(o.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    want_gs = JL.flash_attention(jq, jk, jv, causal=True, window=16,
+                                 global_stride=8, pos_trivial=True,
+                                 backend="ref")
+    o = TL.flash_attention(q, k, v, causal=True, window=16, global_stride=8,
                            pos_trivial=True, backend="ref")
-    # sparse="off" pins the dense kernel for a window, as the reference
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_gs), rtol=1e-5,
+                               atol=1e-5)
     o = TL.flash_attention(q, k, v, causal=True, window=16,
                            pos_trivial=True, backend="cuda", sparse="off",
                            cfg="base", bwd_cfg="base", bq=BQ, bkv=BKV)
-    want = TL.mea_attention(q, k, v, causal=True, window=16)
     np.testing.assert_allclose(o.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 

@@ -173,8 +173,8 @@ ROUTES = {
     "olmoe-1b-7b": (True, True, True, True),
     "qwen1.5-4b": (True, True, True, True),
     "seamless-m4t-large-v2": (True, True, True, True),
-    "gemma3-1b": (False, True, True, True),             # head dim 256
-    "recurrentgemma-2b": (False, False, False, True),   # head dim 256, G 10
+    "gemma3-1b": (True, True, True, True),
+    "recurrentgemma-2b": (True, False, False, True),    # G 10
     "yi-34b": (True, True, False, True),                # T*G = 35
     "qwen2-vl-7b": (True, True, False, True),           # T*G = 35
 }
@@ -240,11 +240,10 @@ def test_verify_route_beyond_the_kernel(h, hkv, plain):
         torch.testing.assert_close(got, want, **TOL)
 
 
-@pytest.mark.parametrize("d,plain", [(256, True), (64, False)])
+@pytest.mark.parametrize("d,plain", [(96, True), (64, False)])
 def test_flash_route_beyond_the_kernel(d, plain):
-    """Head dim 256 (gemma3-1b, recurrentgemma-2b) takes `mea_attention`
-    under the kernel backend, counted; head dim 64 takes the kernel's
-    wrapper."""
+    """Head dim 96 (no kernel holds it) takes `mea_attention` under the
+    kernel backend, counted; head dim 64 takes the kernel's wrapper."""
     rng = np.random.default_rng(3)
     q = torch.from_numpy(_rand(rng, 1, 128, 2, d))
     k = torch.from_numpy(_rand(rng, 1, 128, 1, d))
@@ -280,8 +279,8 @@ def _unheld(route):
     on tensors of no CPU device (``meta``: shapes without data)."""
     m = dict(device="meta")
     if route == "flash":
-        q = torch.empty(1, 128, 2, 256, **m)
-        k = torch.empty(1, 128, 1, 256, **m)
+        q = torch.empty(1, 128, 2, 96, **m)
+        k = torch.empty(1, 128, 1, 96, **m)
         return lambda: TL.flash_attention(q, k, k, pos_trivial=True,
                                           backend="cuda", sparse="off")
     if route == "decode":
