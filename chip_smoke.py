@@ -1,6 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--phases kernels,tune,serve,...]
+
+With no arguments it runs every phase below; ``--phases`` runs the named
+ones (names in ``PHASES``) and the phases they read.  The device and build
+phases always run.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -44,27 +48,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
    index) equal to the plan's for every label; the DP's rows/C launches a
    call; fault models (a lost sub-block, con and gap swapped, a block's
    first row reading itself as its upper neighbour, the DP carry from row
-   t-2) shown to fail the checks.
+   t-2) shown to fail the checks.  The embed-gather kernel (row 14) at
+   the tuner's qwen3-0.6b spec (8192 ids, a 152064 x 1024 table, float32
+   and bf16): every label bit-equal to the plain version (ids past the
+   table and below -V clamped, ids in [-V, 0) wrapped), owner maps equal
+   to the plan's, a block read from its neighbour and con/gap swapped
+   shown to fail the checks; its time beside `F.embedding`'s.
+   tune — `warm_from_flag(qwen3-0.6b, "exhaustive")` at the paged serve
+   geometry (8 slots x 1024, page 16) into a fresh cache under
+   `build/chip_smoke_tune/<pid>/`: every family's candidates with their
+   measured ms, the winner and the H100 bound; no family skipped; every
+   candidate's measurement launched its kernel; the cache file reloads
+   with the same winners; `tune_report()`.  The launch counts are zeroed
+   just before the warm and read just after it (the embed-gather kernel's
+   main path is the tuner's measurer).  Every other ``cfg="auto"`` of the
+   process resolves through caches under the same directory, removed at
+   the end.
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
    are zeroed just before this run and read just after it.  Then the same
    trace through the plain paths, and one full-width `lm_decode_step` on a
-   shared cache, kernel path against plain path.  From the same weights:
-   the trace through `BatchedServer` (contiguous caches), bf16 and then
-   int8 KV, each with 28 contiguous-decode launches per decode step and a
-   full-width contiguous `lm_decode_step`, kernel path against plain path;
-   a full-width verify-vs-decode check (row t of `lm_verify_step` against
+   shared cache, kernel path against plain path.  From the same weights
+   (phases ``contig`` and ``spec``, each in a process of its own that
+   runs beside these serve runs, and whose output is printed, tagged, when
+   it ends): the trace through `BatchedServer` (contiguous caches), bf16
+   and then int8 KV, each with one contiguous-decode launch a layer per
+   decode step and a contiguous `lm_decode_step`, kernel path against
+   plain path;
+   a verify-vs-decode check (row t of `lm_verify_step` against
    `lm_decode_step` at pos0 + t, kernel path, within 5% of the largest
    logit, with a shifted mask shown to exceed it); and 8 requests of 32
    tokens through `Scheduler` over `SpecPagedEngine` (K 4, an undersized
    pool) twice, a `draft_of` draft and a self draft, each with every
-   request FINISHED, no page leak, a preemption and 28 verify launches per
-   verify step; a third (`draft_of`) whose tie guard voids every verify
-   row must emit a `PagedEngine` run's tokens on every request, and the
-   first two runs' tokens against it are reported.  In the verify-vs-decode
+   request FINISHED, no page leak, a preemption and one verify launch a
+   layer per verify step; a third (`draft_of`) whose tie guard voids
+   every verify row must emit a `PagedEngine` run's tokens on every
+   request, and the first two runs' tokens against it are reported; a
+   fourth (`draft_of`, int8 KV pools) passes the same checks with one int8
+   verify launch a layer per verify step.  In the verify-vs-decode
    check (16 draws of random draft tokens), every verify row that clears
-   the spec tie guard must keep its decode row's argmax.
+   the spec tie guard must keep its decode row's argmax.  Then (phase
+   ``tuned-serve``) the paged trace again through `PagedEngine(tune="exhaustive")` on the tune
+   phase's cache, under phase 4's hard checks (28 paged decode launches
+   per decode step), with the keys the run filed, the label each resolved
+   to and whether the warm filled it, the cache hits and misses, token
+   agreement with the base run (reported) and a full-width
+   `lm_decode_step` at the tuned labels, kernel path against plain path.
 5. train  — full-width qwen3-0.6b training through `launch.train.train`
    (float32 master weights from a seeded generator, bf16 compute, batch 4
    x 1024 tokens, AdamW, remat none): 4 steps on the flash kernels with
@@ -74,7 +104,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel path must match within limits that three planted faults of the
    kernel path (dQ zeroed, dK/dV zeroed, a V tile read as zeros) exceed,
    and a resume check (2 steps, checkpoint, 2 resumed steps) that must
-   repeat the kernel path's losses exactly.  Then full-width gemma3-1b (26
+   repeat the kernel path's losses exactly.  Then `train(...,
+   tune="exhaustive")`, 2 steps from a fresh cache (its warm printed
+   candidate by candidate first), whose step-0 loss and grad norm must lie
+   within the same limits of the plain path's (28 launches of each flash
+   kernel a step).  Then full-width gemma3-1b (26
    layers, 22 local with window 512, hd 256, vocab 262144, tied
    embeddings; batch 1 x 4096 tokens) for 4 steps three times: (a) the
    kernels with the block-sparse forward on the local layers (launches
@@ -100,21 +134,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    base label's against its plain version (the matmul app within K *
    2^-24), with the launch counts zeroed just before
    and read just after.
-8. result — the card's name and power limit again, the kernels' JSON line (launches summed
-   over the main-path runs of phases 4-7; the int8-pool verify runs on no
-   served path and is checked in phase 3 only), then the device JSON
-   line, last.
+8. result — the card's name and power limit again, the kernels' JSON
+   line (launches summed over the main-path runs: the tune phase and
+   phases 4-7, side processes included), then the device JSON line, last.
+   Each phase prints its seconds.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
+import os
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -132,12 +170,14 @@ from repro_torch.bench import fig11_ai as fig11  # noqa: E402
 from repro_torch.bench.common import (BF16_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
                                       smi_line, time_ms)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.coarsening import (CoarseningConfig,  # noqa: E402
-                                         plan_rows, plan_stream, row_owners,
+from repro_torch.core.coarsening import (BASE,  # noqa: E402
+                                         CoarseningConfig, plan_rows,
+                                         plan_stream, row_owners,
                                          stream_owners)
 from repro_torch.kernels import chunk_scan as scan_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import embed_gather as eg_mod  # noqa: E402
 from repro_torch.kernels import ew_stream as ew_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import gather_stream as gs_mod  # noqa: E402
@@ -156,6 +196,14 @@ from repro_torch.serve import (PagedEngine, Request, Scheduler,  # noqa: E402
                                SpecPagedEngine, State, draft_of)
 from repro_torch.serve.paging import pages_needed  # noqa: E402
 from repro_torch.serve.spec import clears_tie_guard  # noqa: E402
+from repro_torch.obs import Registry  # noqa: E402
+from repro_torch.tune import (ENV_VAR, KernelSpec, TuningCache,  # noqa: E402
+                              default_cache, model_cost, tune_report,
+                              warm_from_flag)
+from repro_torch.tune.warm import model_specs  # noqa: E402
+
+# the package re-exports functions under some submodules' names
+tune_warm = importlib.import_module("repro_torch.tune.warm")
 
 SEED = 0
 
@@ -1603,6 +1651,77 @@ def dp_scan_phase() -> dict:
                       plain_ms, bound, None)
 
 
+# -- row 14: embed gather, at the tuner's qwen3-0.6b spec ---------------------
+
+EMBED_LABELS = ("base", "con2", "gap2", "con4", "gap4", "con8", "gap8")
+
+
+def embed_gather_phase(gen: torch.Generator) -> dict:
+    """The embed-gather kernel at the spec the tuner measures for
+    qwen3-0.6b serving (8 slots x 1024: N 8192 ids into the padded vocab,
+    d 1024), float32 and bf16 tables: every label bit-equal to the plain
+    version (among the ids some past the table, some in [-V, 0) and
+    some below -V, read as the Pallas body's index reads them), owner
+    maps equal to the plan's, two fault models caught, then the times."""
+    spec = model_specs(get_config("qwen3-0.6b"), seq=MAX_LEN, batch=SLOTS,
+                       page_size=PAGE)["embed_gather"]
+    n, vocab, d = spec.shape
+    ids = torch.randint(0, vocab, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ids[::97] = vocab + 5                   # past the table: row V-1
+    ids[5::101] = -3                        # in [-V, 0): row V-3
+    ids[7::103] = -vocab - 2                # below -V: row 0
+    table = torch.randn((vocab, d), generator=gen, device="cuda")
+    for tab in (table, table.bfloat16()):
+        want = ref.embed_gather(ids, tab)
+        for lab in EMBED_LABELS:
+            hold_equal(f"embed_gather {tab.dtype} {lab}",
+                       eg_mod.embed_gather(ids, tab, lab), want)
+        print(f"embed_gather ({n} ids, {tab.dtype} table {vocab} x {d}): "
+              f"every label bit-equal to the plain version", flush=True)
+        del want
+    for lab in EMBED_LABELS:
+        plan = plan_stream(n, CoarseningConfig.parse(lab), eg_mod.BLOCK)
+        hold_owners(f"embed_gather {lab}",
+                    eg_mod.embed_gather(ids, table, lab, probe=True),
+                    stream_owners(plan, "cuda")[:, None].expand(n, d))
+    print("embed_gather: the owner map of every label equals its plan's",
+          flush=True)
+    want = ref.embed_gather(ids, table)
+    # an id block read from its neighbour: block 0 takes block 1's ids
+    shifted = ids.clone()
+    shifted[:eg_mod.BLOCK] = ids[eg_mod.BLOCK:2 * eg_mod.BLOCK]
+    gap = plan_stream(n, CoarseningConfig.parse("gap4"), eg_mod.BLOCK)
+    swapped = eg_mod.embed_gather(ids, table, "con4", probe=True)
+    print("embed_gather fault models: "
+          + caught("id block 0 read from block 1",
+                   ref.embed_gather(shifted, table), want) + "; "
+          + caught("con4 and gap4 swapped (owner map against gap4's plan)",
+                   swapped, stream_owners(gap, "cuda").float()[:, None]
+                   .expand(n, d).contiguous()), flush=True)
+    rows = {}
+    inside = ids.clamp(0, vocab - 1)
+    for tab in (table, table.bfloat16()):
+        elem = tab.element_size()
+        ms = time_ms(lambda: eg_mod.embed_gather(ids, tab, "base"))
+        plain_ms = time_ms(lambda: ref.embed_gather(ids, tab), reps=5)
+        # F.embedding asserts on ids outside the table: in-range ids
+        lib_ms = time_ms(lambda: torch.nn.functional.embedding(inside, tab))
+        bound = bench.bound_ms(4 * n + n * d * elem + 4 * n * d, 0)
+        print(f"embed_gather timing (base, {n} ids, {tab.dtype} table): "
+              f"kernel {ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) "
+              f"| plain {plain_ms:.4f} ms | F.embedding {lib_ms:.4f} ms",
+              flush=True)
+        rows[tab.dtype] = (ms, plain_ms, bound, lib_ms)
+    del table, want, swapped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel_row("embed_gather",
+                      "src/repro_torch/kernels/csrc/embed_gather.cu",
+                      "src/repro/kernels/embed_gather.py:50", 0.0,
+                      *rows[torch.float32])
+
+
 def paper_kernels_phase() -> list:
     rows = []
     for phase in (ew_stream_phase, gather_stream_phase, stencil_phase,
@@ -1636,6 +1755,29 @@ def paper_sweeps_phase() -> dict:
 
 SLOTS, CHUNK, PAGE, MAX_LEN, BLOCK = 8, 16, 16, 1024, 8
 N_REQ, GEN = 16, 64
+# full-width qwen3-0.6b, made once a process for its serve phases
+WEIGHTS: dict = {}
+
+
+def qwen3() -> tuple:
+    """(cfg, params) of full-width qwen3-0.6b: 28 layers of random bf16
+    weights from a torch.Generator seeded with SEED, so that every process
+    of the run serves the same model."""
+    if not WEIGHTS:
+        cfg = get_config("qwen3-0.6b")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        params = M.lm_init(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        print(f"qwen3-0.6b full width: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+              f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+              f"{sum(t.numel() for t in leaves) / 1e6:.1f}M params, "
+              f"{sum(t.nbytes for t in leaves) / 2**30:.2f} GiB, init "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        WEIGHTS.update(cfg=cfg, params=params)
+    return WEIGHTS["cfg"], WEIGHTS["params"]
 
 
 def trace(vocab: int):
@@ -1644,11 +1786,13 @@ def trace(vocab: int):
     return [list(map(int, rng.integers(1, vocab, n))) for n in lens]
 
 
-def serve(cfg, params, prompts, num_pages, backend: str):
+def serve(cfg, params, prompts, num_pages, backend: str, tune=None):
+    """The trace through the Scheduler over a PagedEngine (warmed first
+    when ``tune`` is given) -> (requests, preemptions, decode steps)."""
     eng = PagedEngine(cfg, params, slots=SLOTS, num_pages=num_pages,
                       page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
                       decode_block=BLOCK, decode_backend=backend,
-                      ffn_backend=backend, device="cuda")
+                      ffn_backend=backend, tune=tune, device="cuda")
     sched = Scheduler(eng)
     for p in prompts:
         sched.submit(p, GEN)
@@ -1666,6 +1810,7 @@ def serve(cfg, params, prompts, num_pages, backend: str):
     if eng.nan_rescues:
         raise SystemExit(f"{backend} serve: NaN logits")
     npre = sum(r.preemptions for r in done)
+    backend += f", tune {tune}" if tune else ""
     print(f"serve [{backend}]: {len(done)} requests, {npre} preemptions, "
           f"{eng.prefill_steps} prefill chunks, {eng.decode_steps} decode "
           f"steps, {wall:.2f}s wall | prefill {eng.prefill_tokens} tok "
@@ -1673,7 +1818,7 @@ def serve(cfg, params, prompts, num_pages, backend: str):
           f"{eng.decoded_tokens} tok "
           f"{eng.decoded_tokens / eng.decode_device_s:.1f} tok/s",
           flush=True)
-    return done, npre
+    return done, npre, eng.decode_steps
 
 
 def decode_step_parity(cfg, params, prompts) -> None:
@@ -1715,18 +1860,8 @@ def decode_step_parity(cfg, params, prompts) -> None:
         raise SystemExit("kernel path and plain path logits disagree")
 
 
-def serve_phase(name: str) -> dict:
-    cfg = get_config("qwen3-0.6b")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = M.lm_init(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    n_par = sum(t.numel() for t in _leaves(params))
-    print(f"qwen3-0.6b full width: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}: {n_par / 1e6:.1f}M params, "
-          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f}"
-          f" GiB, init {time.perf_counter() - t0:.1f}s", flush=True)
+def serve_phase() -> dict:
+    cfg, params = qwen3()
     prompts = trace(cfg.vocab)
     # pool: 60% of the pages the first SLOTS requests hold at completion,
     # so the running set outgrows it and the scheduler must preempt
@@ -1736,7 +1871,8 @@ def serve_phase(name: str) -> dict:
           f"{need} at completion)", flush=True)
 
     zero_counts()
-    done, npre = serve(cfg, params, prompts, num_pages, "cuda")
+    done, npre, _ = serve(cfg, params, prompts, num_pages, "cuda")
+    SERVED["base tokens"] = [r.output for r in done]
     counts = read_counts()
     path = ("paged_decode_attention", "coarsened_matmul")
     print(f"kernel launches on the served path: "
@@ -1746,20 +1882,14 @@ def serve_phase(name: str) -> dict:
     if min(counts[k] for k in path) < 1:
         raise SystemExit(f"a kernel of the path never launched: {counts}")
 
-    plain, _ = serve(cfg, params, prompts, num_pages, "ref")
+    plain, _, _ = serve(cfg, params, prompts, num_pages, "ref")
     agree = [next((i for i, (a, b) in enumerate(zip(r.output, p.output))
                    if a != b), GEN) for r, p in zip(done, plain)]
     print(f"greedy tokens, kernel path vs plain path: "
           f"{sum(a == GEN for a in agree)}/{N_REQ} requests identical; "
           f"first divergence per request {agree}", flush=True)
     decode_step_parity(cfg, params, prompts)
-    # the contiguous and speculative paths, from the same weights; each run
-    # counts its own launches from zero
-    totals = dict(counts)
-    for phase in (contig_serve_phase, spec_serve_phase):
-        for k, v in phase(cfg, params).items():
-            totals[k] += v
-    return totals
+    return counts
 
 
 # -- phase 6: serve qwen2-moe-a2.7b, bf16 and int8 (counters of every phase) --
@@ -1783,7 +1913,8 @@ COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "ew_stream": (ew_mod, "launches"),
             "gather_stream": (gs_mod, "launches"),
             "stencil5": (st_mod, "launches"),
-            "dp_scan": (scan_mod, "launches")}
+            "dp_scan": (scan_mod, "launches"),
+            "embed_gather": (eg_mod, "launches")}
 
 
 def zero_counts() -> None:
@@ -2146,7 +2277,8 @@ def contig_decode_step_parity(cfg, params, server) -> None:
                          "disagree")
 
 
-def contig_serve_phase(cfg, params) -> dict:
+def contig_serve_phase() -> dict:
+    cfg, params = qwen3()
     prompts = trace(cfg.vocab)
     totals = dict.fromkeys(COUNTERS, 0)
     for kv_quant in ("none", "int8"):
@@ -2226,10 +2358,12 @@ def spec_serve(cfg, params, prompts, num_pages, draft: str, **kw) -> tuple:
         raise SystemExit(f"spec serve ({draft}): the undersized pool forced "
                          f"no preemption")
     want = cfg.n_layers * eng.spec_steps
-    if counts["verify_attention"] != want:
-        raise SystemExit(f"spec serve ({draft}): {counts['verify_attention']}"
-                         f" verify launches, not {cfg.n_layers} per verify "
-                         f"step ({want})")
+    key = "verify_attention" + ("_int8" if eng.cfg.kv_quant == "int8"
+                                else "")
+    if counts[key] != want:
+        raise SystemExit(f"spec serve ({draft}): {counts[key]} {key} "
+                         f"launches, not {cfg.n_layers} per verify step "
+                         f"({want})")
     outputs = [r.output for r in done]
     del eng, sched
     gc.collect()
@@ -2331,7 +2465,8 @@ def verify_decode_exactness(cfg, params, prompts) -> None:
     torch.cuda.empty_cache()
 
 
-def spec_serve_phase(cfg, params) -> dict:
+def spec_serve_phase() -> dict:
+    cfg, params = qwen3()
     prompts = trace(cfg.vocab)[:SPEC_REQ]
     need = sum(pages_needed(len(p) + SPEC_GEN, PAGE) for p in prompts)
     num_pages = int(0.6 * need) + 1
@@ -2341,8 +2476,9 @@ def spec_serve_phase(cfg, params) -> dict:
     totals = dict.fromkeys(COUNTERS, 0)
     outs = {}
     for draft, kw in (("draft_of", {}), ("self", {}),
-                      ("draft_of", {"tie_tau": math.inf})):
-        counts, outs[draft, bool(kw)] = spec_serve(
+                      ("draft_of", {"tie_tau": math.inf}),
+                      ("draft_of", {"kv_quant": "int8"})):
+        counts, outs[draft, tuple(kw)] = spec_serve(
             cfg, params, prompts, num_pages, draft, **kw)
         for k, v in counts.items():
             totals[k] += v
@@ -2362,10 +2498,13 @@ def spec_serve_phase(cfg, params) -> dict:
     for p in prompts:
         sched.submit(p, SPEC_GEN)
     base = [r.output for r in sched.run_until_done()]
-    for (draft, voided), out in outs.items():
+    for (draft, kw), out in outs.items():
         agree = [next((i for i, (a, b) in enumerate(zip(o, r)) if a != b),
                       SPEC_GEN) for o, r in zip(out, base)]
-        tag = f"{draft}{', every row voided' if voided else ''}"
+        voided = "tie_tau" in kw
+        tag = draft + {(): "", ("tie_tau",): ", every row voided",
+                       ("kv_quant",): ", int8 KV pools (against bf16 "
+                                      "pools)"}[kw]
         print(f"greedy tokens, spec ({tag}) vs PagedEngine kernel path: "
               f"{sum(a == SPEC_GEN for a in agree)}/{SPEC_REQ} requests "
               f"identical; first divergence per request {agree}",
@@ -2377,6 +2516,228 @@ def spec_serve_phase(cfg, params) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return totals
+
+
+# -- the tuner: warm, tuned serving, tuned training ---------------------------
+
+# this process's caches (and its side processes' logs), removed at the end
+TUNE_DIR = ROOT / "build" / "chip_smoke_tune" / str(os.getpid())
+# what a tuned run shares with the runs before it
+SERVED: dict = {}
+# a warmed family's candidates launch these kernels (any of them)
+FAMILY_COUNTERS = {
+    "ew_stream": ("ew_stream",), "embed_gather": ("embed_gather",),
+    "matmul": ("coarsened_matmul", "quant_matmul"),
+    "decode_attention": ("contig_decode_attention",
+                         "contig_decode_attention_int8"),
+    "decode_attention_paged": ("paged_decode_attention",
+                               "paged_decode_attention_int8"),
+    "flash_attention_verify": ("verify_attention", "verify_attention_int8"),
+    "flash_attention": ("flash_forward",),
+    "flash_attention_bwd": ("flash_bwd_dkv",),
+    "flash_attention_sparse": ("flash_sparse_fwd",),
+    "moe_ffn": ("moe_ffn", "quant_moe_ffn")}
+
+
+def use_cache(name: str, fresh: bool) -> Path:
+    """Point ``cfg="auto"`` at the tuning cache ``build/chip_smoke_tune/
+    <name>.json`` (emptied first when ``fresh``)."""
+    path = TUNE_DIR / f"{name}.json"
+    if fresh:
+        path.unlink(missing_ok=True)
+    os.environ[ENV_VAR] = str(path)
+    ops._auto_cfg.cache_clear()
+    return path
+
+
+@contextlib.contextmanager
+def logged_measurer(log: list):
+    """The tuner's measurer, wrapped: each candidate's time is logged, and
+    a measurement that launched no kernel of its family fails the run."""
+    make = tune_warm.wall_measurer
+
+    def wrapped(*a, **kw):
+        measure = make(*a, **kw)
+
+        def logged(spec, cfg):
+            before = read_counts()
+            sec = measure(spec, cfg)
+            after = read_counts()
+            rose = sum(after[k] - before[k]
+                       for k in FAMILY_COUNTERS[spec.family])
+            if rose < 1:
+                raise SystemExit(f"tune: measuring {spec.key} under "
+                                 f"{cfg.label} launched no kernel")
+            log.append((spec, cfg.label, sec * 1e3, rose))
+            return sec
+        return logged
+
+    tune_warm.wall_measurer = wrapped
+    try:
+        yield
+    finally:
+        tune_warm.wall_measurer = make
+
+
+@contextlib.contextmanager
+def filed_keys(out: dict):
+    """Record every key a CUDA call resolves "auto" under -> its label."""
+    real = ops.resolve_cfg
+
+    def recording(cfg, family, shape, **kw):
+        got = real(cfg, family, shape, **kw)
+        if cfg == "auto" and kw.get("backend") == "cuda":
+            params = {k: v for k, v in kw.items()
+                      if k not in ("dtype", "backend")}
+            out[KernelSpec.make(family, shape, dtype=kw["dtype"],
+                                **params).key] = got.label
+        return got
+
+    ops.resolve_cfg = recording
+    try:
+        yield
+    finally:
+        ops.resolve_cfg = real
+
+
+def warm_exhaustive(cfg, **geom) -> tuple:
+    """`warm_from_flag(cfg, "exhaustive", ...)` with every candidate's
+    time printed beside its spec's bound -> (winners, launch counts)."""
+    log = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with logged_measurer(log):
+        won = warm_from_flag(cfg, "exhaustive", metrics=Registry(), **geom)
+    counts = read_counts()
+    specs = model_specs(cfg, **geom)
+    for fam, spec in specs.items():
+        cands = [(lab, ms) for sp, lab, ms, _ in log if sp.key == spec.key]
+        print(f"tune {fam} {spec.shape} {spec.dtype}: "
+              + ", ".join(f"{lab} {ms:.4f}" for lab, ms in cands)
+              + f" ms -> {won.get(fam)} | bound "
+              f"{model_cost(spec, BASE) * 1e3:.4f} ms", flush=True)
+    print(f"tune: {len(log)} candidates measured in "
+          f"{time.perf_counter() - t0:.1f}s, each launching its kernel",
+          flush=True)
+    skipped = sorted(set(specs) - set(won))
+    if skipped:
+        raise SystemExit(f"tune: families skipped: {skipped}")
+    reload = TuningCache(default_cache().path)
+    if any(reload.entries[s.key]["cfg"] != won[f] for f, s in specs.items()):
+        raise SystemExit("tune: the cache file reloads with other winners")
+    print(f"tune: the cache file reloads with the same {len(specs)} "
+          f"winners", flush=True)
+    print(tune_report(), flush=True)
+    return won, counts
+
+
+def tune_phase() -> dict:
+    """The exhaustive warm of qwen3-0.6b at the paged serve geometry, into
+    a fresh cache that the tuned serve run reads."""
+    use_cache("serve", fresh=True)
+    try:
+        _, counts = warm_exhaustive(get_config("qwen3-0.6b"), seq=MAX_LEN,
+                                    batch=SLOTS, page_size=PAGE)
+    finally:
+        use_cache("untuned", fresh=False)
+    return counts
+
+
+def report_filed(tag: str, filed: dict, warmed: dict) -> None:
+    """The keys a tuned run filed, their labels, and which the warm
+    filled (the rest missed and took the bound's pick, base)."""
+    keys = {s.key for s in warmed.values()}
+    for key, lab in sorted(filed.items()):
+        print(f"  {tag} filed {key} -> {lab} "
+              f"({'warmed' if key in keys else 'not warmed: base'})",
+              flush=True)
+    print(f"  {tag}: {len(set(filed) & keys)} of {len(filed)} keys filed "
+          f"were warmed; warmed and never filed: "
+          f"{sorted(keys - set(filed))}", flush=True)
+
+
+def tuned_serve_phase() -> dict:
+    """The phase-4 trace through PagedEngine(tune="exhaustive") on the
+    tune phase's cache, with phase 4's hard checks, then a decode step at
+    the tuned labels, kernel path against plain path."""
+    cfg, params = qwen3()
+    prompts = trace(cfg.vocab)
+    need = sum(pages_needed(len(p) + GEN, PAGE) for p in prompts[:SLOTS])
+    num_pages = int(0.6 * need) + 1
+    cache = TuningCache(str(use_cache("serve", fresh=False)))
+    default = default_cache()
+    hits, misses = default.stats["hits"], default.stats["misses"]
+    filed = {}
+    try:
+        zero_counts()
+        with filed_keys(filed):
+            done, npre, steps = serve(cfg, params, prompts, num_pages,
+                                      "cuda", tune="exhaustive")
+        counts = read_counts()
+        print(f"  kernel launches on the tuned served path: "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        report_filed("serve", filed, model_specs(
+            cfg, seq=MAX_LEN, batch=SLOTS, page_size=PAGE))
+        print(f"  serve tuned: cache {default.stats['hits'] - hits} hits / "
+              f"{default.stats['misses'] - misses} misses in the run "
+              f"({len(cache)} winners warmed)", flush=True)
+        want = cfg.n_layers * steps
+        if npre < 1:
+            raise SystemExit("tuned serve: the pool forced no preemption")
+        if counts["paged_decode_attention"] != want \
+                or counts["coarsened_matmul"] < 1:
+            raise SystemExit(f"tuned serve: {counts} launches, not "
+                             f"{cfg.n_layers} paged decode launches per "
+                             f"decode step ({want}) and an FFN matmul")
+        base = SERVED["base tokens"]
+        agree = [next((i for i, (a, b) in enumerate(zip(r.output, o))
+                       if a != b), GEN) for r, o in zip(done, base)]
+        print(f"greedy tokens, tuned vs base labels (reported): "
+              f"{sum(a == GEN for a in agree)}/{N_REQ} requests identical; "
+              f"first divergence per request {agree}", flush=True)
+        decode_step_parity(cfg, params, prompts)
+    finally:
+        use_cache("untuned", fresh=False)
+    return counts
+
+
+def tuned_train_phase() -> dict:
+    """train(tune="exhaustive") for qwen3-0.6b, 2 steps of 4 x 1024, from a
+    fresh cache: step-0 loss and grad norm within phase 5's limits of its
+    plain path."""
+    cfg = get_config("qwen3-0.6b")
+    use_cache("train", fresh=True)
+    filed = {}
+    try:
+        # the warm train() runs first, here with every candidate printed;
+        # train's own warm then hits, and the counts cover the steps only
+        warm_exhaustive(cfg, seq=TRAIN["seq"], batch=TRAIN["batch"])
+        zero_counts()
+        with filed_keys(filed):
+            losses, norms, secs = train_run(cfg, "cuda", steps=2,
+                                            ckpt_dir=None, tune="exhaustive")
+        counts = read_counts()
+        report_filed("train", filed, model_specs(
+            cfg, seq=TRAIN["seq"], batch=TRAIN["batch"]))
+        print(tune_report(), flush=True)
+    finally:
+        use_cache("untuned", fresh=False)
+    want = SERVED["train plain"]
+    got = {"step-0 loss": losses[0], "step-0 grad norm": norms[0]}
+    gap = rel_gaps(got, {n: want[n] for n in got})
+    flash = {k: counts[k] for k in ("flash_forward", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    print(f"train [cuda, tune exhaustive]: losses {losses}, grad norms "
+          f"{norms}, step seconds {[round(x, 4) for x in secs]}; kernel "
+          f"launches {flash}; tuned - plain, relative: "
+          + ", ".join(f"{n} {gap[n]:.3e} (limit {TRAIN_LIMITS[n]:.3e})"
+                      for n in gap), flush=True)
+    if any(n != 2 * cfg.n_layers for n in flash.values()):
+        raise SystemExit(f"tuned train: flash launches {flash}, not "
+                         f"{cfg.n_layers} each a step")
+    if not all(gap[n] <= TRAIN_LIMITS[n] for n in gap):
+        raise SystemExit("tuned training and plain training disagree")
+    return counts
 
 
 # -- phase 5: train -----------------------------------------------------------
@@ -2484,6 +2845,7 @@ def train_phase() -> dict:
     plain, p_norms, p_secs = train_run(cfg, "ref", steps=TRAIN_STEPS,
                                        ckpt_dir=None)
     want = readings(plain, p_norms)
+    SERVED["train plain"] = want
     gap = rel_gaps(readings(losses, norms), want)
     print(f"train [ref]: losses {plain}, grad norms {p_norms}, step seconds "
           f"{[round(x, 4) for x in p_secs]}; kernel - plain, relative: "
@@ -2638,41 +3000,146 @@ def _leaves(tree):
         yield tree
 
 
-def main() -> None:
+# the phases after the build, in order: name -> (function, phases it reads)
+PHASES = {"kernels": (None, ()),
+          "tune": (tune_phase, ()),
+          "serve": (serve_phase, ()),
+          "contig": (contig_serve_phase, ()),
+          "spec": (spec_serve_phase, ()),
+          "tuned-serve": (tuned_serve_phase, ("tune", "serve")),
+          "train": (train_phase, ()),
+          "tuned-train": (tuned_train_phase, ("train",)),
+          "gemma3-train": (gemma_train_phase, ()),
+          "serve-moe": (moe_serve_phase, ()),
+          "paper": (paper_sweeps_phase, ())}
+# the qwen3-0.6b serve phases, bound by the host's Python, not the card
+SERVE = ("serve", "contig", "spec", "tuned-serve")
+# serve phases that share nothing with the others: where the run holds more
+# phases, each runs in a process of its own beside the other serve phases
+# (the card idles in all of them; timed phases never overlap them)
+SIDE = ("contig", "spec")
+LAUNCHES = "kernel launches over the main-path runs: "
+
+
+def chosen_phases(argv) -> list:
+    ap = argparse.ArgumentParser(
+        description="Chip smoke test of the PyTorch/CUDA port on one "
+                    "NVIDIA GPU.  With no arguments it runs every phase.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (with the phases "
+                         "they read), of: " + ", ".join(PHASES))
+    want = set(ap.parse_args(argv).phases.split(","))
+    if want - set(PHASES):
+        ap.error(f"unknown phases {sorted(want - set(PHASES))}")
+    for name in list(want):
+        want.update(PHASES[name][1])
+    return [name for name in PHASES if name in want]
+
+
+def start_side(phase: str) -> tuple:
+    """`chip_smoke.py --phases <phase>` in a process of its own, its
+    output to a log under TUNE_DIR."""
+    TUNE_DIR.mkdir(parents=True, exist_ok=True)
+    log = open(TUNE_DIR / f"{phase}.log", "w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--phases", phase], cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT)
+    print(f"phase {phase}: started in process {proc.pid}", flush=True)
+    return proc, log, time.perf_counter()
+
+
+def join_side(phase: str, proc, log, t0) -> dict:
+    """Wait for a side process, print its output (each line tagged) and
+    return its launch counts; its failure fails the run."""
+    rc = proc.wait()
+    log.seek(0)
+    lines = log.read().splitlines()
+    log.close()
+    for line in lines:
+        print(f"  [{phase}] {line}")
+    print(f"phase {phase}: exit {rc} in its own process, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    counts = [line[len(LAUNCHES):] for line in lines
+              if line.startswith(LAUNCHES)]
+    if rc or len(counts) != 1:
+        raise SystemExit(f"phase {phase} failed in its own process (exit "
+                         f"{rc})")
+    return json.loads(counts[0])
+
+
+def main(argv=None) -> None:
     t_start = time.perf_counter()
+    phases = chosen_phases(argv)
     name = device_phase()
+    # every cfg="auto" of the run resolves through caches under build/
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    use_cache("untuned", fresh=True)
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
-    d256 = flash256_phase(gen)
-    dense_ms = d256[SPARSE["window"]]["flash_forward"][0]
-    kernels += [sparse_phase(gen, dense_ms), decode_int8_phase(gen),
-                moe_phase(gen), quant_moe_phase(gen), quant_matmul_phase(gen),
-                contig_phase(gen, quant=False), contig_phase(gen, quant=True),
-                verify_phase(gen, quant=False)]
-    # the int8-pool verify is checked and timed here but runs on no served
-    # path yet (the spec runs keep bf16 pools), so it is not in the line
-    verify_phase(gen, quant=True)
-    kernels += paper_kernels_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
+    kernels = []
+    if "kernels" in phases:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t_kernels = time.perf_counter()
+        kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
+        d256 = flash256_phase(gen)
+        dense_ms = d256[SPARSE["window"]]["flash_forward"][0]
+        kernels += [sparse_phase(gen, dense_ms), decode_int8_phase(gen),
+                    moe_phase(gen), quant_moe_phase(gen),
+                    quant_matmul_phase(gen), contig_phase(gen, quant=False),
+                    contig_phase(gen, quant=True),
+                    verify_phase(gen, quant=False),
+                    verify_phase(gen, quant=True)]
+        kernels += paper_kernels_phase()
+        kernels.append(embed_gather_phase(gen))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase kernels: {time.perf_counter() - t_kernels:.1f}s",
+              flush=True)
     # launches: the sum over the main-path runs, each counted from zero
     totals = dict.fromkeys(COUNTERS, 0)
-    for phase in (lambda: serve_phase(name), train_phase, gemma_train_phase,
-                  moe_serve_phase, paper_sweeps_phase):
-        for k, v in phase().items():
+    sides = [p for p in SIDE if p in phases] if len(phases) > 1 else []
+    running = {}
+
+    def add(counts):
+        for k, v in counts.items():
             totals[k] += v
-        print(f"elapsed: {time.perf_counter() - t_start:.1f}s", flush=True)
-    print(f"kernel launches over the main-path runs: {totals}", flush=True)
+
+    try:
+        for tag in phases[1:] if phases[0] == "kernels" else phases:
+            if tag in SERVE and sides and not running:
+                running = {p: start_side(p) for p in sides}
+            if tag in sides:
+                continue
+            if tag not in SERVE and running:
+                for p in sides:
+                    add(join_side(p, *running.pop(p)))
+            if tag not in SERVE and WEIGHTS:
+                WEIGHTS.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            add(PHASES[tag][0]())
+            print(f"phase {tag}: {time.perf_counter() - t0:.1f}s; elapsed "
+                  f"{time.perf_counter() - t_start:.1f}s", flush=True)
+        for p in list(running):
+            add(join_side(p, *running.pop(p)))
+    finally:
+        for proc, log, _ in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    print(LAUNCHES + json.dumps(totals), flush=True)
     for k in kernels:
         k["launches"] = totals[k["name"]]
-    if any(k["launches"] < 1 for k in kernels):
+    if len(phases) == len(PHASES) \
+            and any(k["launches"] < 1 for k in kernels):
         raise SystemExit(f"a kernel never launched on its path: {totals}")
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(smi_line())
-    print(json.dumps({"kernels": kernels}))
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

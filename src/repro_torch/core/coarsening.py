@@ -97,13 +97,15 @@ BASE = CoarseningConfig()
 
 
 def resolve(cfg) -> CoarseningConfig:
-    """Normalise an op's ``cfg`` argument: a CoarseningConfig passes
-    through, a label is parsed, and ``"auto"`` is BASE — the port has no
-    tuner yet, so "auto" means the uncoarsened kernel."""
+    """Normalise a kernel's ``cfg`` argument: a CoarseningConfig passes
+    through and a label is parsed.  ``"auto"`` names no config by itself:
+    `repro_torch.kernels.ops.resolve_cfg` resolves it per call, through
+    the tuner, with the call's kernel family and shape; here it raises."""
     if isinstance(cfg, CoarseningConfig):
         return cfg
     if cfg == "auto":
-        return BASE
+        raise ValueError('cfg="auto" is resolved by repro_torch.kernels.ops.'
+                         'resolve_cfg with the kernel family and shape')
     return CoarseningConfig.parse(cfg)
 
 

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "matmul", "flash_attention",
            "sparse_attention", "moe_ffn", "quant_matmul", "stream",
-           "stencil", "chunk_scan")
+           "stencil", "chunk_scan", "embed_gather")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,6 +70,9 @@ SIGNATURES = {
     },
     "chunk_scan": {
         "dp_scan_f32": [_P] * 2 + [_I] * 3 + [_P],
+    },
+    "embed_gather": {
+        "embed_gather": [_P] * 3 + [_I] * 8 + [_P],
     },
 }
 

@@ -20,14 +20,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
+                                         resolve)
 from repro_torch.kernels import _build, ref
 
 launches = 0                        # kernel launches since the last reset
 
 
 def dp_scan(cost: torch.Tensor,
-            cfg: CoarseningConfig | str = "auto") -> torch.Tensor:
+            cfg: CoarseningConfig | str = BASE) -> torch.Tensor:
     """(rows, cols) f32 -> (rows, cols) f32."""
     global launches
     cfg = resolve(cfg)

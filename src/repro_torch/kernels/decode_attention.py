@@ -34,7 +34,8 @@ import math
 
 import torch
 
-from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
+                                         resolve)
 from repro_torch.kernels import _build, ref
 
 MAX_GROUP = 8                      # query heads per kv head the kernel takes
@@ -84,7 +85,7 @@ def _scales(k_scale, v_scale, shape):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
-                           cfg: CoarseningConfig | str = "auto", *,
+                           cfg: CoarseningConfig | str = BASE, *,
                            window: int | None = None,
                            scale: float | None = None,
                            k_scale=None, v_scale=None) -> torch.Tensor:
@@ -223,7 +224,7 @@ def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
 
 
 def decode_attention(q, k_cache, v_cache, pos,
-                     cfg: CoarseningConfig | str = "auto", *, bkv: int = 128,
+                     cfg: CoarseningConfig | str = BASE, *, bkv: int = 128,
                      window: int | None = None, scale: float | None = None,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B,1,H,D); caches: (B,S,Hkv,D), slot b's rows in order; pos: (B,)
@@ -268,7 +269,7 @@ def decode_attention(q, k_cache, v_cache, pos,
 
 
 def verify_attention(q, k_pool, v_pool, block_table, pos0,
-                     cfg: CoarseningConfig | str = "auto", *,
+                     cfg: CoarseningConfig | str = BASE, *,
                      window: int | None = None, scale: float | None = None,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B,T,H,D), row t at cache position ``pos0[b] + t``; pools:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.coarsening import (DEFAULT_BLOCK, KIND_GAPPED,
+from repro_torch.core.coarsening import (BASE, DEFAULT_BLOCK, KIND_GAPPED,
                                          CoarseningConfig, plan_stream,
                                          resolve, stream_owners)
 from repro_torch.kernels import _build, ref
@@ -32,7 +32,7 @@ MAX_LOADS = 8
 launches = 0                        # kernel launches since the last reset
 
 
-def ew_stream(inputs, cfg: CoarseningConfig | str = "auto", *, ai: int = 6,
+def ew_stream(inputs, cfg: CoarseningConfig | str = BASE, *, ai: int = 6,
               variant: str = "base", block: int = DEFAULT_BLOCK,
               probe: bool = False) -> torch.Tensor:
     """(N,) f32 streams -> (N,) f32 through the coarsened kernel."""

@@ -32,7 +32,8 @@ import math
 
 import torch
 
-from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
+                                         resolve)
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (64, 128, 256)
@@ -111,7 +112,7 @@ def _args(q, k, cfg, bq, bkv, causal, window, scale):
             float(scale))
 
 
-def flash_forward(q, k, v, cfg: CoarseningConfig | str = "auto", *,
+def flash_forward(q, k, v, cfg: CoarseningConfig | str = BASE, *,
                   bq: int = 128, bkv: int = 128, causal: bool = True,
                   window: int | None = None, scale: float | None = None,
                   residuals: bool = False):
@@ -145,7 +146,7 @@ def flash_forward(q, k, v, cfg: CoarseningConfig | str = "auto", *,
 
 
 def flash_bwd_dq(q, k, v, do, m, l, delta,
-                 cfg: CoarseningConfig | str = "auto", *, bq: int = 128,
+                 cfg: CoarseningConfig | str = BASE, *, bq: int = 128,
                  bkv: int = 128, causal: bool = True,
                  window: int | None = None, scale: float | None = None):
     """dQ from the forward residuals.  do: (B,H,Sq,D) float32; m, l,
@@ -174,7 +175,7 @@ def flash_bwd_dq(q, k, v, do, m, l, delta,
 
 
 def flash_bwd_dkv(q, k, v, do, m, l, delta,
-                  cfg: CoarseningConfig | str = "auto", *, bq: int = 128,
+                  cfg: CoarseningConfig | str = BASE, *, bq: int = 128,
                   bkv: int = 128, causal: bool = True,
                   window: int | None = None, scale: float | None = None):
     """dK/dV from the forward residuals, coarsened on the kv-block axis by

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.coarsening import (DEFAULT_BLOCK, KIND_GAPPED,
+from repro_torch.core.coarsening import (BASE, DEFAULT_BLOCK, KIND_GAPPED,
                                          CoarseningConfig, plan_stream,
                                          resolve, stream_owners)
 from repro_torch.kernels import _build, ref
@@ -47,7 +47,7 @@ def make_indices(n: int, table: int, locality_window: int,
     return ((blk + offs) % table).astype(np.int32)
 
 
-def gather_stream(idx, tables, cfg: CoarseningConfig | str = "auto", *,
+def gather_stream(idx, tables, cfg: CoarseningConfig | str = BASE, *,
                   ai: int = 6, block: int = DEFAULT_BLOCK,
                   probe: bool = False) -> torch.Tensor:
     """idx (N,) int32, tables (T,) f32 each -> (N,) f32."""

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
+                                         resolve)
 from repro_torch.kernels import _build, ref
 from repro_torch.quant.qtypes import QTensor
 
@@ -46,8 +47,31 @@ def tileable(m: int, n: int, k: int, cfg: CoarseningConfig) -> bool:
             and m % (c * BM) == 0 and n % (BN * vw) == 0 and k % BK == 0)
 
 
+def quant_ref_tileable(m: int, n: int, k: int, cfg: CoarseningConfig,
+                       bits: int, group: int) -> bool:
+    """The reference qkernel's tile rule (`repro/kernels/matmul.py:87`),
+    which the plain path keeps too: 8- or 4-bit weights, m, n and k tiled
+    by C*128, 128*vector_width and 256, int4 groups even and tiling 256."""
+    c, vw = cfg.degree, cfg.vector_width
+    return (bits in (8, 4) and m % (c * Q_BM) == 0 and n % (Q_BN * vw) == 0
+            and k % Q_BK == 0
+            and (bits != 4 or (group >= 2 and group % 2 == 0
+                               and Q_BK % group == 0)))
+
+
+def quant_tileable(m: int, n: int, k: int, cfg: CoarseningConfig,
+                   bits: int, group: int) -> bool:
+    """Whether the dequant-fused kernel takes an (m,k) @ packed (k,n)
+    product of ``bits``-bit weights (int4 in groups of ``group`` rows)
+    under ``cfg``: the reference's tile rule and the kernel's own limits
+    (degree <= 2, vector width 1, int4 groups a multiple of 16)."""
+    return (quant_ref_tileable(m, n, k, cfg, bits, group)
+            and cfg.degree <= Q_MAX_DEGREE and cfg.vector_width == 1
+            and (bits != 4 or group % 16 == 0))
+
+
 def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
-                     cfg: CoarseningConfig | str = "auto") -> torch.Tensor:
+                     cfg: CoarseningConfig | str = BASE) -> torch.Tensor:
     """(m,k) @ (k,n) -> (m,n) float32 through the coarsened kernel."""
     global launches
     cfg = resolve(cfg)
@@ -83,7 +107,7 @@ def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 def quant_matmul(a: torch.Tensor, qw: QTensor,
-                 cfg: CoarseningConfig | str = "auto") -> torch.Tensor:
+                 cfg: CoarseningConfig | str = BASE) -> torch.Tensor:
     """(m,k) @ packed (k,n) -> (m,n) float32 through the dequant-fused
     kernel (int8: qw.q (k,n) + scale (1,n); int4: (k/2,n) uint8 nibbles +
     (k/group,n))."""
@@ -94,24 +118,19 @@ def quant_matmul(a: torch.Tensor, qw: QTensor,
                          f"{qw.shape}")
     m, k = a.shape
     n = qw.shape[1]
-    c, vw = cfg.degree, cfg.vector_width
-    if m % (c * Q_BM) or n % (Q_BN * vw) or k % Q_BK:
-        raise ValueError(f"shape ({m},{n},{k}) not tileable by "
-                         f"C*bm={c * Q_BM}, bn={Q_BN * vw}, bk={Q_BK}")
-    if qw.bits not in (8, 4):
-        raise ValueError(f"bits must be 8 or 4, got {qw.bits}")
-    if qw.bits == 4 and (qw.group % 2 or Q_BK % qw.group):
-        raise ValueError(f"int4 needs even bk tiled by group, got "
-                         f"bk={Q_BK}, group={qw.group}")
+    if not quant_ref_tileable(m, n, k, cfg, qw.bits, qw.group):
+        raise ValueError(
+            f"quant_matmul ({m},{n},{k}) int{qw.bits} group {qw.group} "
+            f"under {cfg.label} is not tileable: needs bits 8 or 4, "
+            f"m % (degree*{Q_BM}), n % ({Q_BN}*vector_width), k % {Q_BK}, "
+            f"and int4 groups even and tiling bk={Q_BK}")
     if a.device.type == "cpu":
         return ref.quant_matmul(a, qw)
-    if c > Q_MAX_DEGREE or vw != 1:
+    if not quant_tileable(m, n, k, cfg, qw.bits, qw.group):
         raise ValueError(f"quant_matmul kernel takes degree <= "
-                         f"{Q_MAX_DEGREE} and vector_width 1, got "
-                         f"{cfg.label}")
-    if qw.bits == 4 and qw.group % 16:
-        raise ValueError(f"quant_matmul kernel takes int4 groups that are "
-                         f"multiples of 16, got {qw.group}")
+                         f"{Q_MAX_DEGREE}, vector_width 1 and int4 groups "
+                         f"that are multiples of 16, got {cfg.label}, "
+                         f"group {qw.group}")
     ops_ = (a, qw.q, qw.scale)
     if a.device.type != "cuda" or any(t.device != a.device for t in ops_):
         raise ValueError("quant_matmul operands must share one CUDA device")
@@ -124,7 +143,7 @@ def quant_matmul(a: torch.Tensor, qw: QTensor,
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     rc = _build.library("quant_matmul").quant_matmul(
         a.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(), out.data_ptr(),
-        m, n, k, qw.bits, qw.group, c, int(cfg.kind == KIND_GAPPED),
+        m, n, k, qw.bits, qw.group, cfg.degree, int(cfg.kind == KIND_GAPPED),
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "quant_matmul")
     q_launches += 1

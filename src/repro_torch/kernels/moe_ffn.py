@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
+                                         resolve)
 from repro_torch.kernels import _build, ref
 from repro_torch.quant.qtypes import QTensor
 
@@ -24,6 +25,16 @@ TILE_N, TILE_K = 64, 32            # the kernel's column and depth tiles
 
 launches = 0                       # bf16 kernel launches since the last reset
 q_launches = 0                     # dequant-fused launches since the reset
+
+
+def takes(d: int, f: int, bits: int | None = None, group: int = 0) -> bool:
+    """Whether the kernels take widths d and F (tiles of 64 columns) and,
+    for packed weights, ``bits``-bit values (int4 in groups of ``group``
+    rows, tiling d and F, a multiple of 16)."""
+    if d % TILE_N or f % TILE_N:
+        return False
+    return bits != 4 or (group > 0 and group % 16 == 0 and d % group == 0
+                         and f % group == 0)
 
 
 def _check(xe, w1, w3, w2, comb, cfg: CoarseningConfig):
@@ -40,7 +51,7 @@ def _check(xe, w1, w3, w2, comb, cfg: CoarseningConfig):
     return e, c, d, f
 
 
-def _cuda_checks(what, tensors, d, f):
+def _cuda_checks(what, tensors, d, f, bits=None, group=0):
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{what} operands must share one CUDA device")
@@ -48,13 +59,14 @@ def _cuda_checks(what, tensors, d, f):
                for t in tensors):
         raise ValueError(f"{what} kernel takes contiguous, 16-byte aligned "
                          f"operands")
-    if d % TILE_N or f % TILE_N:
+    if not takes(d, f, bits, group):
         raise ValueError(f"{what} kernel takes d and F multiples of "
-                         f"{TILE_N}, got d={d}, F={f}")
+                         f"{TILE_N} (and int4 groups multiples of 16 that "
+                         f"tile both), got d={d}, F={f}, group={group}")
     return dev
 
 
-def moe_ffn(xe, w1, w3, w2, comb, cfg: CoarseningConfig | str = "auto"):
+def moe_ffn(xe, w1, w3, w2, comb, cfg: CoarseningConfig | str = BASE):
     """xe (E,C,d); w1, w3 (E,d,F); w2 (E,F,d); comb (E,C) combine weights
     -> (E,C,d) f32: per expert ``(silu(xe@w1) * (xe@w3)) @ w2 * comb``, h
     rounded once to xe's dtype."""
@@ -81,7 +93,7 @@ def moe_ffn(xe, w1, w3, w2, comb, cfg: CoarseningConfig | str = "auto"):
 
 
 def quant_moe_ffn(xe, qw1: QTensor, qw3: QTensor, qw2: QTensor, comb,
-                  cfg: CoarseningConfig | str = "auto"):
+                  cfg: CoarseningConfig | str = BASE):
     """The same chain with packed expert panes (int8: (E,d,F) + (E,1,F)
     scales; int4: (E,d/2,F) nibbles + (E,d/group,F) scales, w2 alike),
     f32 throughout (h is not rounded) -> (E,C,d) f32."""
@@ -97,10 +109,7 @@ def quant_moe_ffn(xe, qw1: QTensor, qw3: QTensor, qw2: QTensor, comb,
     if xe.device.type == "cpu":
         return ref.quant_moe_ffn(xe, qw1, qw3, qw2, comb)
     ws = [t for w in (qw1, qw3, qw2) for t in (w.q, w.scale)]
-    dev = _cuda_checks("quant_moe_ffn", [xe, *ws, comb], d, f)
-    if bits == 4 and group % 16:
-        raise ValueError(f"quant_moe_ffn kernel takes int4 groups that are "
-                         f"multiples of 16, got {group}")
+    dev = _cuda_checks("quant_moe_ffn", [xe, *ws, comb], d, f, bits, group)
     if xe.dtype != torch.bfloat16 or comb.dtype != torch.float32:
         raise TypeError("quant_moe_ffn kernel takes bf16 xe and f32 combine "
                         "weights")

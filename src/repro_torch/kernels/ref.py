@@ -544,3 +544,15 @@ def dp_scan(cost: torch.Tensor) -> torch.Tensor:
         out[t] = cost[t] + torch.minimum(prev, torch.minimum(left, right))
         prev = out[t]
     return out
+
+
+def embed_gather(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``out[i, :] = table[ids[i], :]`` as float32 (`repro/kernels/
+    embed_gather.py:30-66`: the Pallas kernel's output is float32 whatever
+    the table's type, :58).  Ids out of range follow the Pallas body's
+    in-VMEM index: -V <= id < 0 wraps from the end of the table (id + V),
+    then the index clamps to [0, V-1] (an id past the table reads row V-1,
+    an id below -V row 0)."""
+    vocab = table.shape[0]
+    i = ids.long()
+    return table[torch.where(i < 0, i + vocab, i).clamp(0, vocab - 1)].float()

@@ -28,7 +28,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core.coarsening import KIND_GAPPED, CoarseningConfig, resolve
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
+                                         resolve)
 from repro_torch.kernels import _build, ref
 
 # the NULL slot sentinel: kv block 0 is live under every causal pattern, so
@@ -165,7 +166,7 @@ def _check(q, k, v, idx, cfg: CoarseningConfig, bq, bkv) -> None:
                          f"degree {cfg.degree}")
 
 
-def flash_sparse_fwd(q, k, v, idx, cfg: CoarseningConfig | str = "auto", *,
+def flash_sparse_fwd(q, k, v, idx, cfg: CoarseningConfig | str = BASE, *,
                      bq: int = 128, bkv: int = 128, causal: bool = True,
                      window: int | None = None,
                      global_stride: int | None = None,

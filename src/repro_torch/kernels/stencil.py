@@ -18,14 +18,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.coarsening import (KIND_GAPPED, CoarseningConfig,
+from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
                                          plan_rows, resolve, row_owners)
 from repro_torch.kernels import _build, ref
 
 launches = 0                        # kernel launches since the last reset
 
 
-def stencil5(x: torch.Tensor, cfg: CoarseningConfig | str = "auto", *,
+def stencil5(x: torch.Tensor, cfg: CoarseningConfig | str = BASE, *,
              block_rows: int = 8, probe: bool = False) -> torch.Tensor:
     """(rows, cols) f32 -> (rows, cols) f32 through the coarsened kernel."""
     global launches

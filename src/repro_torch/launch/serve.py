@@ -43,7 +43,11 @@ reference's flag, `store_true` with ``default=True``, can never be
 switched off), and ``--cache`` defaults to ``paged``, not ``contiguous``:
 the port's paged path came first and its callers rely on the default.
 `BatchedServer` samples greedily (the reference's ``temperature`` is never
-set by its launcher) and has no ``--tune`` (the port has no tuner yet).
+set by its launcher).  ``--tune`` warms the coarsening cache
+(`repro_torch.tune`) before serving and prints `tune_report` at the end;
+``greedy`` and ``exhaustive`` time the labels on the card, while ``auto``
+and ``model`` rank by the H100 bound, which is the same for every label,
+and so pick base (the reference ranks by a TPU cost model).
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from repro_torch.obs import Registry, TraceRecorder
 from repro_torch.quant.qtypes import quantize_params, tree_nbytes
 from repro_torch.serve import (PagedEngine, Scheduler, SpecPagedEngine,
                                State, draft_of)
+from repro_torch.tune import TUNE_CHOICES, tune_report
 
 
 def _slot_reset(cache, slot: int) -> None:
@@ -93,7 +98,8 @@ class BatchedServer:
                  decode_backend: str | None = None,
                  ffn_backend: str | None = None,
                  moe_backend: str | None = None, quant: str | None = None,
-                 kv_quant: str | None = None, device=None):
+                 kv_quant: str | None = None, tune: str | None = None,
+                 device=None):
         for field, value in (("decode_backend", decode_backend),
                              ("ffn_backend", ffn_backend),
                              ("moe_backend", moe_backend), ("quant", quant),
@@ -106,6 +112,11 @@ class BatchedServer:
         if cfg.quant in ("int8", "int4"):
             params, self.quant_report = quantize_params(
                 params, cfg.quant, group=cfg.quant_group)
+        if tune:
+            # the families this server's loops file, at the allocated
+            # cache length (`repro/launch/serve.py:121-126`)
+            from repro_torch.tune import warm_from_flag
+            warm_from_flag(cfg, tune, seq=max_len, batch=slots)
         self.cfg, self.params = cfg, params
         self.slots, self.max_len = int(slots), int(max_len)
         self.chunk, self.decode_block = int(chunk), int(decode_block)
@@ -226,7 +237,7 @@ def serve_contiguous(args, cfg, params, rng, device) -> list:
                            decode_backend=args.backend,
                            ffn_backend=args.backend, moe_backend=args.backend,
                            quant=args.quant, kv_quant=args.kv_quant,
-                           device=device)
+                           tune=args.tune, device=device)
     pending = [list(map(int, rng.integers(1, cfg.vocab, args.prompt_len)))
                for _ in range(args.requests)]
     t0 = time.perf_counter()
@@ -280,7 +291,7 @@ def serve_paged(args, cfg, params, rng, device) -> list:
               chunk=args.chunk, decode_backend=args.backend,
               ffn_backend=args.backend, moe_backend=args.backend,
               quant=args.quant, kv_quant=args.kv_quant, metrics=reg,
-              trace=trace, device=device)
+              trace=trace, tune=args.tune, device=device)
     if args.spec_k:
         draft_params = None            # a fresh draft at its own geometry
         if args.draft_config == "self":
@@ -421,6 +432,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
                     help="int8 KV pools: quantize on append, dequant fused "
                          "into the split-KV decode kernel")
+    ap.add_argument("--tune", default=None, choices=TUNE_CHOICES,
+                    help="warm the coarsening tuning cache before serving: "
+                         "greedy / exhaustive time the labels on the card; "
+                         "auto / model rank by the H100 bound, the same for "
+                         "every label, so they pick base")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per page (= the decode kernel's kv block)")
     ap.add_argument("--num-pages", type=int, default=None,
@@ -464,8 +480,12 @@ def main(argv=None) -> list:
     params = M.lm_init(cfg, gen, device=device)
     rng = np.random.default_rng(0)
     if args.cache == "contiguous":
-        return serve_contiguous(args, cfg, params, rng, device)
-    return serve_paged(args, cfg, params, rng, device)
+        out = serve_contiguous(args, cfg, params, rng, device)
+    else:
+        out = serve_paged(args, cfg, params, rng, device)
+    if args.tune:
+        print(tune_report())
+    return out
 
 
 if __name__ == "__main__":

@@ -21,7 +21,14 @@ compute is the config's dtype (bf16).  Runs on the card unless
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 3 --batch 2 --seq 64
 
-Not ported: ``--tune``, ``--quant`` and remat ``"dots"``.
+``--tune`` warms the coarsening cache (`repro_torch.tune`) at the run's
+geometry before the first step, the flash forward and dK/dV families
+included, and prints `tune_report` at the end; ``greedy`` and
+``exhaustive`` time the labels on the card, while ``auto`` and ``model``
+rank by the H100 bound, which is the same for every label, and so pick
+base (the reference ranks by a TPU cost model).
+
+Not ported: ``--quant`` and remat ``"dots"``.
 """
 from __future__ import annotations
 
@@ -46,19 +53,22 @@ from repro_torch.models.layers import BACKENDS
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import (PreemptionHandler, SimulatedFailure,
                                  StepWatchdog, retry_step)
+from repro_torch.tune import TUNE_CHOICES, tune_report
 
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           ckpt_dir: str | None, n_micro: int = 1, remat: str = "none",
           lr: float = 3e-4, save_every: int = 50, seed: int = 0,
           log_every: int = 10, fail_at_step: int | None = None,
-          device=None, backend: str = "cuda",
+          device=None, backend: str = "cuda", tune: str | None = None,
           preemption: Optional[PreemptionHandler] = None,
           on_step: Optional[Callable[[int, float, float, float], None]] = None):
     """Train for ``steps`` steps (resuming from ``ckpt_dir``'s latest
     checkpoint when there is one) -> (losses of the steps run, params).
 
-    ``backend`` sets the attention dispatch; ``fail_at_step`` injects one
+    ``backend`` sets the attention dispatch; ``tune`` warms the tuning
+    cache at this geometry first (`repro/launch/train.py:46-53`);
+    ``fail_at_step`` injects one
     `SimulatedFailure` that the retry absorbs; ``preemption`` (default: a
     new handler for SIGTERM / SIGUSR1) stops the loop at the next step
     boundary with a checkpoint, and is uninstalled on the way out;
@@ -69,6 +79,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                          f"{backend!r}")
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg, attn_backend=backend, ffn_backend="ref")
+    if tune:
+        from repro_torch.tune import warm_from_flag
+        warm_from_flag(cfg, tune, seq=seq, batch=batch)
     step_fn = build_train_step(cfg, StepConfig(
         seq=seq, batch=batch, n_micro=n_micro, remat=remat,
         opt=AdamWConfig(lr=lr)))
@@ -163,6 +176,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="cuda", choices=BACKENDS,
                     help="cuda = the flash attention kernels (forward, dQ, "
                          "dK/dV); ref = the plain chunked attention")
+    ap.add_argument("--tune", default=None, choices=TUNE_CHOICES,
+                    help="warm the coarsening tuning cache before training: "
+                         "greedy / exhaustive time the labels on the card; "
+                         "auto / model rank by the H100 bound, the same for "
+                         "every label, so they pick base")
     ap.add_argument("--attn-sparse", default=None, choices=["auto", "off"],
                     help="block-sparse dispatch for local-attention layers "
                          "(window set): 'auto' routes eligible geometries "
@@ -191,11 +209,14 @@ def main(argv=None) -> list:
                       ckpt_dir=args.ckpt_dir, n_micro=args.n_micro,
                       remat=args.remat, lr=args.lr,
                       save_every=args.save_every, seed=args.seed,
-                      device=args.device, backend=args.backend)
+                      device=args.device, backend=args.backend,
+                      tune=args.tune)
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"non-finite loss: {losses}")
     if losses:
         print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    if args.tune:
+        print(tune_report())
     return losses
 
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.coarsening import BASE, resolve
+from repro_torch.core.coarsening import BASE
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops, ref
@@ -227,9 +227,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
     A causal ``window`` under that rule with ``sparse != "off"`` takes the
     block-sparse kernel (`ops.flash_attention_sparse`, :323-346): each q
     block walks only the kv blocks its live index lists; ``sparse_cfg``
-    coarsens over the live-slot axis ("auto" is `BASE`), and an explicit
-    degree that does not divide the index width falls through to the dense
-    path, as in the reference.  A geometry `sparse_kernel_takes` does not
+    coarsens over the live-slot axis ("auto" through the
+    ``flash_attention_sparse`` family), and an explicit degree that does
+    not divide the index width falls through to the dense path, as in the
+    reference.  Every "auto" here resolves through `ops.resolve_cfg` under
+    the reference's key before the port's rules apply; the dK/dV family
+    only where a backward will run.  A geometry `sparse_kernel_takes` does not
     hold raises on the card and takes the dense-mask oracle on CPU
     tensors, counted in ``sparse_plain_routes``.  ``global_stride`` adds
     LongFormer-style global columns to a window; where the sparse kernel
@@ -241,21 +244,36 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     kernel = _uses_kernel(backend)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
 
     def bhsd(x):
         return x.transpose(1, 2).contiguous()
+
+    # the ops' key builders read shapes off (B,H,S,D) views
+    qv, kv = q.transpose(1, 2), k.transpose(1, 2)
+
+    def resolved_bwd(blk_q, blk_k):
+        # resolved only where a backward will run, as the reference's VJP
+        # rule does: a forward-only call files no flash_attention_bwd key
+        if grad or bwd_cfg != "auto":
+            return ops.resolve_flash(bwd_cfg, qv, kv, bq=blk_q, bkv=blk_k,
+                                     causal=causal, bwd=True)
+        return BASE
 
     if (kernel and sparse != "off" and k_len is None and causal
             and window is not None and sq == sk and pos_trivial
             and h % hkv == 0):
         blk_q, blk_k = min(bq, sq), min(bkv, sk)
         if sq % blk_q == 0 and sk % blk_k == 0:
-            ml = _sparse.max_live_blocks(sq, sk, blk_q, blk_k, causal=True,
-                                         window=window,
-                                         global_stride=global_stride)
-            rsp, rbwd = resolve(sparse_cfg), resolve(bwd_cfg)
+            ml, _ = ops.sparse_extent(sq, sk, blk_q, blk_k, True, window,
+                                      global_stride)
+            rsp = ops.resolve_flash_sparse(
+                sparse_cfg, qv, kv, bq=blk_q, bkv=blk_k, causal=True,
+                window=window, global_stride=global_stride)
+            rbwd = BASE if global_stride else resolved_bwd(blk_q, blk_k)
             # an explicit slot degree the padded index can't tile falls
-            # through to the dense path ("auto" is BASE, which fits)
+            # through to the dense path (a tuned one always fits)
             if ml % rsp.degree == 0:
                 kw = dict(bq=blk_q, bkv=blk_k, causal=True, window=window,
                           global_stride=global_stride, scale=scale)
@@ -284,7 +302,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_pos=None,
         if causal or window is not None:
             ok = ok and sq == sk and pos_trivial
         if ok:
-            rcfg, rbwd = resolve(cfg), resolve(bwd_cfg)
+            rcfg = ops.resolve_flash(cfg, qv, kv, bq=blk_q, bkv=blk_k,
+                                     causal=causal)
+            rbwd = resolved_bwd(blk_q, blk_k)
             tiles = sq % (blk_q * rcfg.degree) == 0 \
                 and sk % (blk_k * rbwd.degree) == 0
             if tiles and not flash_kernel_takes(d, blk_q, blk_k, rcfg, rbwd):
@@ -323,7 +343,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None,
     if _uses_kernel(backend):
         blk = min(bkv, s)
         if h % hkv == 0 and s % blk == 0:
-            rcfg = resolve(cfg)
+            rcfg = ops.resolve_decode(cfg, q, k_cache, bkv=blk,
+                                      window=window, k_scale=k_scale)
             if s % (blk * rcfg.degree) == 0 and not rows_kernel_takes(
                     1, h, hkv, d, blk, k_cache.element_size()):
                 _not_held(q, f"contiguous decode with G={h // hkv} query "
@@ -369,14 +390,16 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
     ``v_scale`` (P,ps,Hkv) mark int8 pools: the kernel takes them as they
     are; the plain path dequantizes the gathered views to float32 first."""
     global paged_plain_routes
-    h, hkv = q.shape[2], k_pool.shape[2]
+    h, d = q.shape[2], q.shape[3]
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
     npp = block_table.shape[1]
     if _uses_kernel(backend) and h % hkv == 0:
-        rcfg = resolve(cfg)
+        rcfg = ops.resolve_paged(cfg, q, k_pool, block_table,
+                                 window=window, k_scale=k_scale)
         if npp % rcfg.degree == 0 and not paged_kernel_takes(
-                h, hkv, q.shape[3], k_pool.shape[1], k_pool.element_size()):
+                h, hkv, d, ps, k_pool.element_size()):
             _not_held(q, f"paged decode with G={h // hkv} query heads a kv "
-                      f"head at head dim {q.shape[3]}")
+                      f"head at head dim {d}")
             paged_plain_routes += 1
         elif npp % rcfg.degree == 0:
             return ops.paged_decode_attention(q, k_pool, v_pool, block_table,
@@ -412,7 +435,8 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0, *, window=None,
     _, ps, hkv, _ = k_pool.shape
     npp = block_table.shape[1]
     if _uses_kernel(backend) and h % hkv == 0:
-        rcfg = resolve(cfg)
+        rcfg = ops.resolve_verify(cfg, q, k_pool, block_table,
+                                  window=window, k_scale=k_scale)
         if npp % rcfg.degree == 0 and not rows_kernel_takes(
                 t, h, hkv, d, ps, k_pool.element_size()):
             _not_held(q, f"verify with T*G={t * (h // hkv)} query rows a kv "
@@ -451,9 +475,12 @@ def ffn(p, x, *, backend: str = "ref", cfg="auto"):
     """SwiGLU FFN (`repro/models/layers.py:631`).  With a kernel backend the
     gate, up and down products take the coarsened matmul kernel whenever
     the rows tile as the reference requires (T % 128, d % 256, d_ff % 256);
-    otherwise they are the plain float32 product.  A ``cfg`` the kernel
-    cannot tile raises, as the reference's kernel builder does.  Each
-    product is cast back to x's dtype, as the reference.
+    otherwise they are the plain float32 product.  Each product resolves
+    ``cfg`` under its own (m, n, k) key (`ops.matmul`, as the reference's
+    `ops.matmul` does per call), so "auto" takes the tuned label of that
+    product; an explicit ``cfg`` the kernel cannot tile raises, as the
+    reference's kernel builder does.  Each product is cast back to x's
+    dtype, as the reference.
 
     Quantized weights (`QTensor`) take the dequant-fused kernel
     (`ops.quant_matmul`) on the same rule plus ``256 % group`` (:646-653);
@@ -467,19 +494,15 @@ def ffn(p, x, *, backend: str = "ref", cfg="auto"):
         d_ff = p["w1"].shape[-1]
         g = p["w1"].group or 256
         if kernel and not (t % 128 or d % 256 or d_ff % 256 or 256 % g):
-            rcfg = resolve(cfg)
-
             def qmm(a, qw):
-                return ops.quant_matmul(a.contiguous(), qw, rcfg).to(x.dtype)
+                return ops.quant_matmul(a.contiguous(), qw, cfg).to(x.dtype)
             h = F.silu(qmm(xt, p["w1"])) * qmm(xt, p["w3"])
             return qmm(h, p["w2"]).reshape(shp)
     w1, w3, w2 = (asdense(p[n], x.dtype) for n in ("w1", "w3", "w2"))
     d_ff = w1.shape[1]
     if kernel and not (t % 128 or d % 256 or d_ff % 256):
-        rcfg = resolve(cfg)
-
         def mm(a, b):
-            return ops.matmul(a.contiguous(), b, rcfg).to(x.dtype)
+            return ops.matmul(a.contiguous(), b, cfg).to(x.dtype)
     else:
         def mm(a, b):
             return torch.matmul(a.float(), b.float()).to(x.dtype)
@@ -509,14 +532,21 @@ def moe_expert_ffn(xe, w1, w3, w2, comb, cfg: ModelConfig):
     e, c, d = xe.shape
     f = w1.shape[-1]
     if _uses_kernel(cfg.moe_backend):
-        rcfg = resolve(cfg.moe_ffn_cfg)
         if isinstance(w1, QTensor):
-            if (w1.bits == 8 or (d % w1.group == 0 and f % w1.group == 0)) \
-                    and e % rcfg.degree == 0:
-                return ops.quant_moe_ffn(xe, w1, w3, w2, comb, rcfg)
-        elif e % rcfg.degree == 0:
+            if w1.bits == 8 or (d % w1.group == 0 and f % w1.group == 0):
+                rcfg = ops.resolve_moe(cfg.moe_ffn_cfg, xe, w1)
+                if e % rcfg.degree == 0:
+                    return ops.quant_moe_ffn(xe, w1, w3, w2, comb, rcfg)
+            return _moe_einsum(xe, w1, w3, w2, comb)
+        rcfg = ops.resolve_moe(cfg.moe_ffn_cfg, xe, w1)
+        if e % rcfg.degree == 0:
             return ops.moe_ffn(xe, w1.to(xe.dtype), w3.to(xe.dtype),
                                w2.to(xe.dtype), comb, rcfg)
+    return _moe_einsum(xe, w1, w3, w2, comb)
+
+
+def _moe_einsum(xe, w1, w3, w2, comb):
+    """The reference's einsum fallback of `moe_expert_ffn`."""
     w1, w3, w2 = (asdense(w, xe.dtype).float() for w in (w1, w3, w2))
     xf = xe.float()
     h = F.silu(torch.matmul(xf, w1).to(xe.dtype))

@@ -38,10 +38,14 @@ pools are written in place by `lm_prefill` / `lm_decode_step`
   engine (`serve.spec`) exposes them to the scheduler as
   `step_growth_bound`.
 
+* **Tuning** (:119-122): ``tune="auto"|"model"|"greedy"|"exhaustive"``
+  warms the coarsening cache (`repro_torch.tune.warm_from_flag`) at this
+  engine's geometry (seq = max_len, batch = slots, the page size) before
+  the cache is built, so the first step's ``cfg="auto"`` resolves from it.
+
 Not ported: host-swap ``suspend`` / ``resume`` (their absence makes the
-scheduler take the recompute path on preemption), shared prefixes
-(`register_prefix` and `drop_prefix` raise NotImplementedError) and the
-tuner warm-up.
+scheduler take the recompute path on preemption) and shared prefixes
+(`register_prefix` and `drop_prefix` raise NotImplementedError).
 
 Greedy sampling only: a request's outputs equal its solo run, whatever its
 co-residents.
@@ -82,6 +86,7 @@ class PagedEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int,
                  num_pages: int, page_size: int, max_len: int,
                  chunk: int = 16, decode_block: int = 1,
+                 tune: str | None = None,
                  decode_backend: str | None = None,
                  ffn_backend: str | None = None,
                  moe_backend: str | None = None, quant: str | None = None,
@@ -104,6 +109,10 @@ class PagedEngine:
                 params, cfg.quant, group=cfg.quant_group)
         self.obs = metrics if metrics is not None else Registry()
         self.trace = trace if trace is not None else NULL_TRACER
+        if tune:
+            from repro_torch.tune import warm_from_flag
+            warm_from_flag(cfg, tune, seq=max_len, batch=slots,
+                           page_size=page_size, metrics=self.obs)
         self.cfg, self.params = cfg, params
         self.slots = int(slots)
         self.max_len = int(max_len)

@@ -114,7 +114,15 @@ class SpecPagedEngine(PagedEngine):
         _attention_only(cfg, "speculative decoding needs an attention-only "
                         "stack (recurrent/SSM state cannot be rewound past "
                         "rejected rows); target has")
+        tune = kw.pop("tune", None)
         super().__init__(cfg, params, **kw)
+        if tune:
+            # warmed here, with the verify family (its spec carries K);
+            # self.cfg carries the replacements the base engine applied
+            from repro_torch.tune import warm_from_flag
+            warm_from_flag(self.cfg, tune, seq=self.max_len,
+                           batch=self.slots, page_size=self.page_size,
+                           spec_k=spec_k, metrics=self.obs)
         self.spec_k = int(spec_k)
         draft_cfg = draft_cfg if draft_cfg is not None \
             else draft_of(self.cfg)

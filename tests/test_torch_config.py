@@ -70,7 +70,15 @@ def test_bad_labels_raise_like_reference():
 
 
 def test_auto_resolves_to_base_until_the_tuner_is_ported():
-    assert resolve("auto") == TCfg()
+    """With the tuner ported, "auto" resolves per call site through
+    `ops.resolve_cfg` (a kernel family and shape): on the plain path
+    (backend "ref") to base, without the tuner.  The label parser
+    `resolve` refuses a bare "auto" and parses labels as before."""
+    from repro_torch.kernels import ops
+    assert ops.resolve_cfg("auto", "matmul", (128, 256, 256),
+                           dtype="bfloat16", backend="ref") == TCfg()
+    with pytest.raises(ValueError, match="resolve_cfg"):
+        resolve("auto")
     assert resolve("con2") == TCfg("consecutive", 2)
     cfg = TCfg("gapped", 4)
     assert resolve(cfg) is cfg
