@@ -53,7 +53,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and bf16): every label bit-equal to the plain version (ids past the
    table and below -V clamped, ids in [-V, 0) wrapped), owner maps equal
    to the plan's, a block read from its neighbour and con/gap swapped
-   shown to fail the checks; its time beside `F.embedding`'s.
+   shown to fail the checks; its time beside `F.embedding`'s.  The
+   Mamba-2 SSD (row 12) at mamba2-370m's geometry (H 32, P 64, N 128, G 1,
+   chunk 64; B 4 x 2048): every label within SSD_K * 2^-24 of the terms'
+   magnitude against the float64 plain version, owner maps equal to the
+   Pallas index maps, a state reset at every chunk and con/gap swapped
+   shown to fail.  The RG-LRU (row 13) at recurrentgemma-2b's width (D
+   2560; B 8 x 2048): base, con2/4, gap2/4 within RGLRU_ULPS of each row's
+   largest |h|, owner maps, h dropped every block_t steps and con/gap
+   swapped shown to fail.  The windowed gather (row 17) at row 16's
+   locality cell (N 2^26, table 2^14, window 4096, block 1024) and at a
+   2^24 table: every label of the sweep bit-equal (simd8 refused), owner
+   maps, a slice reading the next slice's window and con/gap swapped
+   shown to fail; its launch timed with bases planned once, beside row
+   16's gather with one table on the same ids.
    tune — `warm_from_flag(qwen3-0.6b, "exhaustive")` at the paged serve
    geometry (8 slots x 1024, page 16) into a fresh cache under
    `build/chip_smoke_tune/<pid>/`: every family's candidates with their
@@ -61,7 +74,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    candidate's measurement launched its kernel; the cache file reloads
    with the same winners; `tune_report()`.  The launch counts are zeroed
    just before the warm and read just after it (the embed-gather kernel's
-   main path is the tuner's measurer).  Every other ``cfg="auto"`` of the
+   main path is the tuner's measurer).  Then exhaustive searches of the
+   ``ssd`` and ``rglru`` families at rows 12 and 13's shapes into the same
+   cache (every candidate launching its kernel), and ``ops.ssd`` /
+   ``ops.rglru`` with ``"auto"``, each of which must hit the cache and
+   launch the winner.  Every other ``cfg="auto"`` of the
    process resolves through caches under the same directory, removed at
    the end.
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
@@ -132,8 +149,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `fig10_mem_divergence` and `fig13_divdeg` at the paper's sizes, every
    label, each output held bit for bit against its base label's and the
    base label's against its plain version (the matmul app within K *
-   2^-24), with the launch counts zeroed just before
-   and read just after.
+   2^-24), then the windowed gather's own `make_kernel` at row 16's
+   locality cell (planning on the call, bit-equal to its plain version),
+   with the launch counts zeroed just before and read just after.
 8. result — the card's name and power limit again, the kernels' JSON
    line (launches summed over the main-path runs: the tune phase and
    phases 4-7, side processes included), then the device JSON line, last.
@@ -183,8 +201,11 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import gather_stream as gs_mod  # noqa: E402
 from repro_torch.kernels import matmul as mm_mod  # noqa: E402
 from repro_torch.kernels import moe_ffn as moe_mod  # noqa: E402
+from repro_torch.kernels import rglru as rg_mod  # noqa: E402
 from repro_torch.kernels import sparse_attention as sp_mod  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels import stencil as st_mod  # noqa: E402
+from repro_torch.kernels import windowed_gather as wg_mod  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import blocks as B  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -198,12 +219,13 @@ from repro_torch.serve.paging import pages_needed  # noqa: E402
 from repro_torch.serve.spec import clears_tie_guard  # noqa: E402
 from repro_torch.obs import Registry  # noqa: E402
 from repro_torch.tune import (ENV_VAR, KernelSpec, TuningCache,  # noqa: E402
-                              default_cache, model_cost, tune_report,
-                              warm_from_flag)
+                              autotune, default_cache, enumerate_candidates,
+                              model_cost, tune_report, warm_from_flag)
 from repro_torch.tune.warm import model_specs  # noqa: E402
 
 # the package re-exports functions under some submodules' names
 tune_warm = importlib.import_module("repro_torch.tune.warm")
+tsearch = importlib.import_module("repro_torch.tune.search")
 
 SEED = 0
 
@@ -1722,6 +1744,264 @@ def embed_gather_phase(gen: torch.Generator) -> dict:
                       *rows[torch.float32])
 
 
+# -- rows 12, 13, 17: Mamba-2 SSD, RG-LRU, windowed gather --------------------
+
+# mamba2-370m's SSD geometry (configs/mamba2_370m.py: d_inner 2048 = 32
+# heads of 64, state 128, one group), chunk 64, batch 4 x 2048 tokens
+SSD_SPEC = KernelSpec.make("ssd", (4, 32, 1, 2048, 64, 128), chunk=64)
+SSD_LABELS = ("base", "con2", "gap2", "con4", "gap4", "con8", "gap8")
+# |y - y64| <= SSD_K * 2^-24 * (the plain version on |x|, |B|, |C|), y64 the
+# plain version in float64: the chunked sums, per-chunk prefix sums and
+# exps round otherwise than the naive oracle.  The float32 plain version is
+# no yardstick here: its prefix sums over 2048 steps reach |cum| ~ 10^3,
+# whose differences lose ~10 bits, and the script prints its own ratio
+SSD_K = 512
+# recurrentgemma-2b's RG-LRU width (lru_width 2560), batch 8 x 2048 tokens
+RGLRU_SPEC = KernelSpec.make("rglru", (8, 2048, 2560), block_d=128,
+                             block_t=64)
+RGLRU_LABELS = ("base", "con2", "gap2", "con4", "gap4")   # con8 does not tile
+# |h - plain| <= RGLRU_ULPS * 2^-24 * max |plain| over the row's channels:
+# the kernel repeats the plain version's operations in its order; expf,
+# log1pf and the recurrence may differ by ulps
+RGLRU_ULPS = 8
+# row 16's locality cell (table 2^14) and a table beyond L2 (2^24), both at
+# locality = window 4096; block 1024 as row 16
+WG_CELLS = {"locality 4096": (1 << 14, 4096),
+            "table 2^24, locality 4096": (1 << 24, 4096)}
+WG_BLOCK = 1024
+
+
+def ssd_plain(x, dt, a, bm, cm) -> torch.Tensor:
+    """`ref.ssd` in the kernel layout (B,H,S,P), a batch row at a time."""
+    return torch.cat([ref.ssd(x[i:i + 1].transpose(1, 2),
+                              dt[i:i + 1].transpose(1, 2), a,
+                              bm[i:i + 1].transpose(1, 2),
+                              cm[i:i + 1].transpose(1, 2)).transpose(1, 2)
+                      for i in range(x.shape[0])])
+
+
+def ssd_chunk_reset(x, dt, a, bm, cm, chunk: int) -> torch.Tensor:
+    """Fault model: the state reset at every chunk boundary."""
+    return torch.cat([ssd_plain(x[:, :, t:t + chunk], dt[:, :, t:t + chunk],
+                                a, bm[:, :, t:t + chunk],
+                                cm[:, :, t:t + chunk])
+                      for t in range(0, x.shape[2], chunk)], dim=2)
+
+
+def ssd_phase(gen: torch.Generator) -> dict:
+    """Row 12 at mamba2-370m's geometry: every label against the plain
+    version in float64 within SSD_K * 2^-24 of the terms' magnitude, owner
+    maps equal to the Pallas index maps, two fault models, the times."""
+    b, h, g, s, p, n = SSD_SPEC.shape
+    chunk = SSD_SPEC.p["chunk"]
+    args = tune_warm.ssd_inputs(SSD_SPEC.shape, gen, "cuda")
+    x, dt, a, bm, cm = args
+    a64 = [t.double() for t in args]
+    want = ssd_plain(*a64)
+    mag = ssd_plain(a64[0].abs(), a64[1], a64[2], a64[3].abs(), a64[4].abs())
+    lim = SSD_K * 2.0 ** -24 * mag
+    worst, err = {}, 0.0
+    for lab in SSD_LABELS:
+        cfg = CoarseningConfig.parse(lab)
+        if not ssd_mod.takes(h, g, n, p, chunk, cfg):
+            raise SystemExit(f"ssd: the kernel refuses {lab} at "
+                             f"{SSD_SPEC.shape}")
+        got = ssd_mod.make_kernel(b, h, g, s, p, n, cfg, chunk=chunk)(*args)
+        torch.cuda.synchronize()
+        worst[lab] = tol_ratio(got.double(), want, lim)
+        if lab == "base":
+            err = (got.double() - want).abs().max().item()
+        if not worst[lab] <= 1.0:
+            raise SystemExit(f"ssd {lab}: {worst[lab]:.3f} of the limit")
+        own = ssd_mod.head_owners(h, cfg).to("cuda").float()
+        hold_owners(f"ssd {lab}", ssd_mod.make_kernel(
+            b, h, g, s, p, n, cfg, chunk=chunk)(*args, probe=True),
+            own[None, :, None, None].expand(b, h, s, p))
+        del got
+    plain32 = ssd_plain(*args).double()
+    reset = ssd_chunk_reset(*a64, chunk)
+    swapped = ssd_mod.make_kernel(b, h, g, s, p, n, "con4",
+                                  chunk=chunk)(*args, probe=True)
+    gap_own = ssd_mod.head_owners(h, CoarseningConfig.parse("gap4")).to(
+        "cuda").float()[None, :, None, None].expand(b, h, s, p)
+    print(f"ssd (B {b}, H {h}, G {g}, S {s}, P {p}, N {n}, chunk {chunk}): "
+          f"every label within {SSD_K} * 2^-24 of the terms' magnitude "
+          f"against the float64 plain version (worst "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          + f" of the limit; base max |err| {err:.3e}; the float32 plain "
+          f"version {tol_ratio(plain32, want, lim):.3f}); owner maps equal "
+          f"the Pallas index maps; fault models: state reset at every chunk "
+          f"{tol_ratio(reset, want, lim):.3e} of the limit (caught); "
+          + caught("con4 and gap4 swapped (owner map against gap4's)",
+                   swapped, gap_own), flush=True)
+    if not tol_ratio(reset, want, lim) > 1.0:
+        raise SystemExit("fault model 'state reset at every chunk' would "
+                         "pass the check")
+    del want, mag, lim, a64, plain32, reset, swapped
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = ssd_mod.make_kernel(b, h, g, s, p, n, "base", chunk=chunk)
+    ms = time_ms(lambda: run(*args))
+    plain_ms = time_ms(lambda: ref.ssd(
+        x.transpose(1, 2), dt.transpose(1, 2), a, bm.transpose(1, 2),
+        cm.transpose(1, 2)), reps=3)
+    io, ops_, _ = tsearch.work(SSD_SPEC)
+    bnd = bench.bound_ms(io, ops_)
+    print(f"ssd timing (base, {b * h} blocks): kernel {ms:.4f} ms | bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}; {io / 1e6:.1f} MB, {ops_ / 1e9:.2f} "
+          f"GFLOP f32) | plain {plain_ms:.4f} ms | library none", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+                      "src/repro/kernels/ssd.py:100", err, ms, plain_ms, bnd,
+                      None)
+
+
+def rglru_block_reset(x, r, i, a_param, block_t: int) -> torch.Tensor:
+    """Fault model: h dropped at every block_t boundary."""
+    return torch.cat([ref.rglru(x[:, t:t + block_t], r[:, t:t + block_t],
+                                i[:, t:t + block_t], a_param)
+                      for t in range(0, x.shape[1], block_t)], dim=1)
+
+
+def rglru_phase(gen: torch.Generator) -> dict:
+    """Row 13 at recurrentgemma-2b's width: every label that tiles within
+    RGLRU_ULPS of each row's largest |h|, owner maps, two fault models,
+    the times."""
+    b, s, d = RGLRU_SPEC.shape
+    bd, bt = RGLRU_SPEC.p["block_d"], RGLRU_SPEC.p["block_t"]
+    args = tune_warm.rglru_inputs(RGLRU_SPEC.shape, gen, "cuda")
+    want = ref.rglru(*args)
+    lim = RGLRU_ULPS * 2.0 ** -24 * want.abs().amax(dim=2, keepdim=True)
+    worst, err = {}, 0.0
+    for lab in RGLRU_LABELS:
+        cfg = CoarseningConfig.parse(lab)
+        run = rg_mod.make_kernel(b, s, d, cfg, block_d=bd, block_t=bt)
+        got = run(*args)
+        torch.cuda.synchronize()
+        worst[lab] = tol_ratio(got, want, lim)
+        if lab == "base":
+            err = (got - want).abs().max().item()
+            bits = bits_differ(got, want)
+        if not worst[lab] <= 1.0:
+            raise SystemExit(f"rglru {lab}: {worst[lab]:.3f} of the limit")
+        own = rg_mod.channel_owners(d, cfg, bd).to("cuda").float()
+        hold_owners(f"rglru {lab}", run(*args, probe=True),
+                    own[None, None, :].expand(b, s, d))
+    reset = rglru_block_reset(*args, bt)
+    swapped = rg_mod.make_kernel(b, s, d, "con4", block_d=bd,
+                                 block_t=bt)(*args, probe=True)
+    gap_own = rg_mod.channel_owners(d, CoarseningConfig.parse("gap4"),
+                                    bd).to("cuda").float()
+    print(f"rglru (B {b}, S {s}, D {d}, block_d {bd}): every label within "
+          f"{RGLRU_ULPS} ulps of each row's largest |h| (worst "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          + f" of the limit; base max |err| {err:.3e}, {bits} elements not "
+          f"bit-equal); owner maps equal the Pallas index maps; fault "
+          f"models: h dropped every {bt} steps "
+          f"{tol_ratio(reset, want, lim):.3e} of the limit (caught); "
+          + caught("con4 and gap4 swapped (owner map against gap4's)",
+                   swapped, gap_own[None, None, :].expand(b, s, d)),
+          flush=True)
+    if not tol_ratio(reset, want, lim) > 1.0:
+        raise SystemExit("fault model 'h dropped every block_t steps' would "
+                         "pass the check")
+    del want, lim, reset, swapped
+    run = rg_mod.make_kernel(b, s, d, "base", block_d=bd, block_t=bt)
+    ms = time_ms(lambda: run(*args))
+    plain_ms = time_ms(lambda: ref.rglru(*args), reps=3)
+    io, ops_, _ = tsearch.work(RGLRU_SPEC)
+    bnd = bench.bound_ms(io, ops_)
+    print(f"rglru timing (base, {b * d // bd} blocks of {bd} threads): "
+          f"kernel {ms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]}; "
+          f"{io / 1e6:.1f} MB) | plain {plain_ms:.4f} ms | library none",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel_row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
+                      "src/repro/kernels/rglru.py:77", err, ms, plain_ms, bnd,
+                      None)
+
+
+def windowed_gather_phase() -> dict:
+    """Row 17 at row 16's locality cell and at a table beyond L2: every
+    label of the paper's sweep that the kernel takes bit-equal to the plain
+    version (simd8 refused: its slices of 8192 ids pass the window), owner
+    maps equal to the plan's, two fault models; the launch timed with
+    bases planned once, the planning on its own, and row 16's gather with
+    one table on the same ids beside it (the same function, unwindowed)."""
+    out = None
+    for tag, (table, window) in WG_CELLS.items():
+        idx, tables = fig11.gather_inputs(PAPER_N, table, window, "cuda",
+                                          seed=SEED + 11)
+        tbl = tables[0]
+        del tables
+        idx_np = idx.cpu().numpy()
+        want = ref.windowed_gather(idx, tbl, PAPER_AI)
+        refused, times = [], {}
+        for lab in bench.labels():
+            try:
+                run = wg_mod.make_kernel(PAPER_N, table, lab, window=window,
+                                         block=WG_BLOCK, ai=PAPER_AI)
+            except ValueError:
+                refused.append(lab)
+                continue
+            bases = torch.from_numpy(run.plan_bases(idx_np)).to("cuda")
+            hold_equal(f"windowed_gather {tag} {lab}",
+                       run(idx, tbl, bases), want)
+            hold_owners(f"windowed_gather {tag} {lab}",
+                        run(idx, tbl, bases, probe=True),
+                        stream_owners(run.plan, "cuda"))
+            times[lab] = time_ms(lambda: run(idx, tbl, bases))
+        if refused != ["simd8"]:
+            raise SystemExit(f"windowed_gather {tag}: refused {refused}, "
+                             f"not simd8 alone")
+        run = wg_mod.make_kernel(PAPER_N, table, "base", window=window,
+                                 block=WG_BLOCK, ai=PAPER_AI)
+        t0 = time.perf_counter()
+        bases = torch.from_numpy(run.plan_bases(idx_np)).to("cuda")
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        # each slice reads the next slice's window
+        shifted = torch.roll(bases.flatten(), -1).reshape(bases.shape)
+        swapped = wg_mod.make_kernel(PAPER_N, table, "con4", window=window,
+                                     block=WG_BLOCK)(idx, tbl, probe=True)
+        gap = plan_stream(PAPER_N, CoarseningConfig.parse("gap4"), WG_BLOCK)
+        print(f"windowed_gather {tag} (N 2^26, table {table}, window "
+              f"{window}, block {WG_BLOCK}): every label but simd8 (refused) "
+              f"bit-equal to the plain version, owner maps equal the "
+              f"plans'; fault models: "
+              + caught("each slice reads the next slice's window",
+                       run(idx, tbl, shifted), want) + "; "
+              + caught("con4 and gap4 swapped (owner map against gap4's "
+                       "plan)", swapped, stream_owners(gap, "cuda").float()),
+              flush=True)
+        ms = times["base"]
+        one_ms = time_ms(lambda: gs_mod.gather_stream(idx, (tbl,), "base",
+                                                      ai=PAPER_AI,
+                                                      block=WG_BLOCK))
+        plain_ms = time_ms(lambda: ref.windowed_gather(idx, tbl, PAPER_AI),
+                           reps=5)
+        bnd = bench.bound_ms(bench.gather_bytes(idx, 1),
+                             PAPER_N * 2 * PAPER_AI)
+        print(f"windowed_gather timing {tag} (base): kernel {ms:.4f} ms "
+              f"with bases planned once (planning {plan_ms:.1f} ms on the "
+              f"host) | row 16's gather, one table, same ids {one_ms:.4f} "
+              f"ms | bound {bnd[0]:.4f} ms ({bnd[1]}) | plain "
+              f"{plain_ms:.4f} ms | library none; every label, bases "
+              f"planned once: " + ", ".join(f"{lab} {t:.4f}"
+                                           for lab, t in times.items())
+              + " ms", flush=True)
+        if out is None:            # the JSON line keeps row 16's cell
+            out = kernel_row("windowed_gather",
+                             "src/repro_torch/kernels/csrc/windowed_gather.cu",
+                             "src/repro/kernels/windowed_gather.py:81", 0.0,
+                             ms, plain_ms, bnd, None)
+        del idx, tbl, want, swapped
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def paper_kernels_phase() -> list:
     rows = []
     for phase in (ew_stream_phase, gather_stream_phase, stencil_phase,
@@ -1733,16 +2013,27 @@ def paper_kernels_phase() -> list:
 
 
 def paper_sweeps_phase() -> dict:
-    """The four figure sweeps at the paper's sizes, launch counts zeroed
-    just before and read just after."""
+    """The four figure sweeps at the paper's sizes and one call of the
+    windowed gather's `make_kernel`, launch counts zeroed just before and
+    read just after."""
+    table, window = WG_CELLS["locality 4096"]
+    idx, tables = fig11.gather_inputs(PAPER_N, table, window, "cuda",
+                                      seed=SEED + 15)
     zero_counts()
     t0 = time.perf_counter()
     for fig in (fig8_apps, fig11, fig10_mem_divergence, fig13_divdeg):
         fig.main([])
         gc.collect()
         torch.cuda.empty_cache()
+    # the windowed gather's own entry point, planning on the call
+    got = wg_mod.make_kernel(PAPER_N, table, "base", window=window,
+                             block=WG_BLOCK, ai=PAPER_AI)(idx, tables[0])
     counts = read_counts()
-    path = ("ew_stream", "gather_stream", "stencil5", "dp_scan")
+    hold_equal("windowed_gather (paper path)", got,
+               ref.windowed_gather(idx, tables[0], PAPER_AI))
+    del idx, tables, got
+    path = ("ew_stream", "gather_stream", "stencil5", "dp_scan",
+            "windowed_gather")
     print(f"paper sweeps: {time.perf_counter() - t0:.1f}s; kernel launches "
           f"{ {k: counts[k] for k in path} }", flush=True)
     if min(counts[k] for k in path) < 1:
@@ -1914,7 +2205,10 @@ COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "gather_stream": (gs_mod, "launches"),
             "stencil5": (st_mod, "launches"),
             "dp_scan": (scan_mod, "launches"),
-            "embed_gather": (eg_mod, "launches")}
+            "embed_gather": (eg_mod, "launches"),
+            "ssd": (ssd_mod, "launches"),
+            "rglru": (rg_mod, "launches"),
+            "windowed_gather": (wg_mod, "launches")}
 
 
 def zero_counts() -> None:
@@ -2536,7 +2830,8 @@ FAMILY_COUNTERS = {
     "flash_attention": ("flash_forward",),
     "flash_attention_bwd": ("flash_bwd_dkv",),
     "flash_attention_sparse": ("flash_sparse_fwd",),
-    "moe_ffn": ("moe_ffn", "quant_moe_ffn")}
+    "moe_ffn": ("moe_ffn", "quant_moe_ffn"),
+    "ssd": ("ssd",), "rglru": ("rglru",)}
 
 
 def use_cache(name: str, fresh: bool) -> Path:
@@ -2631,13 +2926,63 @@ def warm_exhaustive(cfg, **geom) -> tuple:
     return won, counts
 
 
+def tune_scan_families() -> dict:
+    """Exhaustive searches of the ``ssd`` and ``rglru`` families (no model
+    spec selects them, in the reference either) at rows 12 and 13's shapes,
+    into the current cache: every candidate's ms beside the bound and the
+    winner; then ``ops.ssd`` / ``ops.rglru`` with ``"auto"`` must hit the
+    cache and launch the winner.  Counts zeroed before, read after."""
+    log = []
+    zero_counts()
+    with logged_measurer(log):
+        measure = tune_warm.wall_measurer()
+    cache = default_cache()
+    won = {}
+    for spec in (SSD_SPEC, RGLRU_SPEC):
+        won[spec.key] = autotune(spec, cache=cache, measure=measure,
+                                 strategy="exhaustive").label
+        cands = [(lab, ms) for sp, lab, ms, _ in log if sp.key == spec.key]
+        if len(cands) != len(enumerate_candidates(spec)):
+            raise SystemExit(f"tune {spec.family}: {len(cands)} candidates "
+                             f"measured of {len(enumerate_candidates(spec))}")
+        print(f"tune {spec.family} {spec.shape}: "
+              + ", ".join(f"{lab} {ms:.4f}" for lab, ms in cands)
+              + f" ms -> {won[spec.key]} | bound "
+              f"{model_cost(spec, BASE) * 1e3:.4f} ms", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    calls = {SSD_SPEC.key: lambda: ops.ssd(
+        *tune_warm.ssd_inputs(SSD_SPEC.shape, gen, "cuda"), "auto",
+        chunk=SSD_SPEC.p["chunk"]),
+        RGLRU_SPEC.key: lambda: ops.rglru(
+        *tune_warm.rglru_inputs(RGLRU_SPEC.shape, gen, "cuda"), "auto",
+        **RGLRU_SPEC.p)}
+    for key, call in calls.items():
+        filed, hits = {}, cache.stats["hits"]
+        fam = key.split("|")[0]
+        before = read_counts()[fam]
+        with filed_keys(filed):
+            call()
+        if filed != {key: won[key]} or cache.stats["hits"] != hits + 1 \
+                or read_counts()[fam] != before + 1:
+            raise SystemExit(f"tune: {fam} \"auto\" filed {filed}, "
+                             f"{cache.stats['hits'] - hits} hits, "
+                             f"{read_counts()[fam] - before} launches; want "
+                             f"the cached {won[key]}, one hit, one launch")
+    print(f"tune: ssd and rglru \"auto\" hit the cache and launched "
+          f"{list(won.values())}", flush=True)
+    return read_counts()
+
+
 def tune_phase() -> dict:
     """The exhaustive warm of qwen3-0.6b at the paged serve geometry, into
-    a fresh cache that the tuned serve run reads."""
+    a fresh cache that the tuned serve run reads; then the ssd and rglru
+    searches into the same cache."""
     use_cache("serve", fresh=True)
     try:
         _, counts = warm_exhaustive(get_config("qwen3-0.6b"), seq=MAX_LEN,
                                     batch=SLOTS, page_size=PAGE)
+        for k, v in tune_scan_families().items():
+            counts[k] += v
     finally:
         use_cache("untuned", fresh=False)
     return counts
@@ -3091,7 +3436,8 @@ def main(argv=None) -> None:
                     verify_phase(gen, quant=False),
                     verify_phase(gen, quant=True)]
         kernels += paper_kernels_phase()
-        kernels.append(embed_gather_phase(gen))
+        kernels += [embed_gather_phase(gen), ssd_phase(gen),
+                    rglru_phase(gen), windowed_gather_phase()]
         gc.collect()
         torch.cuda.empty_cache()
         print(f"phase kernels: {time.perf_counter() - t_kernels:.1f}s",

@@ -28,7 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "matmul", "flash_attention",
            "sparse_attention", "moe_ffn", "quant_matmul", "stream",
-           "stencil", "chunk_scan", "embed_gather")
+           "stencil", "chunk_scan", "embed_gather", "ssd", "rglru",
+           "windowed_gather")
+MAX_SMEM = 227 * 1024               # dynamic shared memory a block may use
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,6 +75,15 @@ SIGNATURES = {
     },
     "embed_gather": {
         "embed_gather": [_P] * 3 + [_I] * 8 + [_P],
+    },
+    "ssd": {
+        "ssd_f32": [_P] * 7 + [_I] * 10 + [_P],
+    },
+    "rglru": {
+        "rglru_f32": [_P] * 5 + [_I] * 7 + [_P],
+    },
+    "windowed_gather": {
+        "windowed_gather_f32": [_P] * 4 + [_I] * 8 + [_P],
     },
 }
 

@@ -22,13 +22,9 @@
 // the GPU every block runs in parallel anyway, so R changes nothing but the
 // grid's shape.
 //
-// The chain: `_arith_chain` of `repro/kernels/ew_stream.py:42`, op t reading
-// register (t+1) % n_loads.  Its pattern repeats every lcm(3, n_loads) ops,
-// so the loop is unrolled by that period and every register index is a
-// compile-time constant.  Every product is by 0.5, so it is exact; the ops
-// are __fadd_rn / __fsub_rn / __fmul_rn, which are never contracted into an
-// FMA, in the reference's order: the kernel equals its plain version bit
-// for bit.
+// The chain: `_arith_chain` of `repro/kernels/ew_stream.py:42`, in
+// `arith_chain.cuh` (shared with `windowed_gather.cu`): the kernel equals
+// its plain version bit for bit.
 //
 // Variants (template parameter): if_id / if_in branch per element and
 // compute only the taken side; div2 / div4 compute only the selected path;
@@ -48,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "arith_chain.cuh"
 #include "vec_io.cuh"
 
 namespace {
@@ -60,30 +57,6 @@ enum Variant { BASE, IF_ID, IF_IN, FOR_CONST_IF_ID, FOR_IN_IF_IN, DIV2, DIV4 };
 struct Ptrs {
   const float* p[MAX_LOADS];
 };
-
-__host__ __device__ constexpr int lcm3(int n) { return n % 3 == 0 ? n : 3 * n; }
-
-// `_arith_chain(regs[ROT:] + regs[:ROT], n_arith)`
-template <int NL, int ROT>
-__device__ __forceinline__ float chain(const float (&r)[NL], int n_arith) {
-  constexpr int P = lcm3(NL);
-  float acc = r[ROT % NL];
-  for (int t0 = 0; t0 < n_arith; t0 += P) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      if (t0 + j < n_arith) {
-        const float x = r[(j + 1 + ROT) % NL];
-        if (j % 3 == 0)
-          acc = __fadd_rn(acc, x);
-        else if (j % 3 == 1)
-          acc = __fsub_rn(acc, x);
-        else
-          acc = __fadd_rn(__fmul_rn(acc, 0.5f), __fmul_rn(x, 0.5f));
-      }
-    }
-  }
-  return acc;
-}
 
 // floor(|x| * scale) as int32 % mod (scale a power of two: exact)
 __device__ __forceinline__ int bucket(float x, float scale, int mod) {

@@ -39,7 +39,6 @@ from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
 from repro_torch.kernels import _build, ref
 
 MAX_GROUP = 8                      # query heads per kv head the kernel takes
-MAX_SMEM = 227 * 1024              # shared memory a block may use (H100)
 
 MAX_ROWS = 32                      # T*G query rows the rows kernel takes
 TILE_ROWS = 32                     # most kv rows the rows kernel stages
@@ -59,7 +58,7 @@ def paged_takes(g: int, d: int, ps: int, elem: int) -> bool:
     path."""
     smem = 2 * ps * d * elem + g * d * 4 + g * ps * 4 + 2 * ps * 4
     return (g <= MAX_GROUP and d % 32 == 0 and d <= 1024
-            and not (elem == 1 and ps > d) and smem <= MAX_SMEM)
+            and not (elem == 1 and ps > d) and smem <= _build.MAX_SMEM)
 
 
 def rows_takes(t: int, g: int, d: int, seg: int, elem: int) -> bool:
@@ -68,7 +67,8 @@ def rows_takes(t: int, g: int, d: int, seg: int, elem: int) -> bool:
     ``seg`` rows (a page or a kv block) of ``elem``-byte values."""
     tr, rr = math.gcd(seg, TILE_ROWS), t * g
     smem = 2 * tr * d * elem + 4 * (rr * d + rr * tr + 3 * rr + 2 * tr)
-    return rr <= MAX_ROWS and d % 32 == 0 and d <= 1024 and smem <= MAX_SMEM
+    return (rr <= MAX_ROWS and d % 32 == 0 and d <= 1024
+            and smem <= _build.MAX_SMEM)
 
 
 def _scales(k_scale, v_scale, shape):
@@ -142,7 +142,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
         raise ValueError(f"paged decode kernel takes G <= {MAX_GROUP}, D a "
                          f"multiple of 32 up to 1024 (and, for int8 pools, "
                          f"page rows <= D) and a page that fits in shared "
-                         f"memory ({MAX_SMEM} B), got G={g}, D={d}, ps={ps}")
+                         f"memory ({_build.MAX_SMEM} B), got G={g}, D={d}, "
+                         f"ps={ps}")
     n_splits = npp // c
     m = torch.empty((b, hkv, g, n_splits), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
@@ -199,8 +200,8 @@ def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
     if not rows_takes(t, g, d, seg, k.element_size()):
         raise ValueError(f"{what} kernel takes T*G <= {MAX_ROWS} query rows "
                          f"a kv head, D a multiple of 32 up to 1024 and a "
-                         f"tile that fits in shared memory ({MAX_SMEM} B), "
-                         f"got T={t}, G={g}, D={d}")
+                         f"tile that fits in shared memory "
+                         f"({_build.MAX_SMEM} B), got T={t}, G={g}, D={d}")
     tr = math.gcd(seg, TILE_ROWS)
     rr = t * g
     n_splits = nseg // c

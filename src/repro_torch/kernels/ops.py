@@ -33,7 +33,9 @@ from repro_torch.kernels import gather_stream as _gather
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_ffn as _moe
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sparse_attention as _sparse
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import stencil as _stencil
 from repro_torch.quant.qtypes import QTensor
 
@@ -467,3 +469,31 @@ def embed_gather(ids, table, cfg: CoarseningConfig | str = BASE, *,
                       dtype=dtype_name(table), backend=backend_of(table),
                       block=block)
     return _embed.embed_gather(ids, table, cfg, block=block)
+
+
+def ssd(x, dt, a, bmat, cmat, cfg: CoarseningConfig | str = BASE, *,
+        chunk: int = 64):
+    """Mamba-2 chunked SSD (`repro/kernels/ops.py:640`): x (B,H,S,P), dt
+    (B,H,S), a (H,), bmat and cmat (B,G,S,N), float32 -> (B,H,S,P) float32,
+    coarsened over heads.  On CPU tensors the plain version runs in the
+    reference's (B,S,H,P) layout, transposed in and out."""
+    _check_no_grad("ops.ssd", x, dt, a, bmat, cmat)
+    b, h, s, p = x.shape
+    g, n = bmat.shape[1], bmat.shape[3]
+    cfg = resolve_cfg(cfg, "ssd", (b, h, g, s, p, n), dtype=dtype_name(x),
+                      backend=backend_of(x), chunk=chunk)
+    return _ssd.make_kernel(b, h, g, s, p, n, cfg, chunk=chunk)(
+        x, dt, a, bmat, cmat)
+
+
+def rglru(x, r, i, a_param, cfg: CoarseningConfig | str = BASE, *,
+          block_d: int = 128, block_t: int = 64):
+    """RG-LRU recurrence (`repro/kernels/ops.py:675`): x, r, i (B,S,D) and
+    a_param (D,) float32 -> h (B,S,D) float32, coarsened over channels."""
+    _check_no_grad("ops.rglru", x, r, i, a_param)
+    b, s, d = x.shape
+    cfg = resolve_cfg(cfg, "rglru", (b, s, d), dtype=dtype_name(x),
+                      backend=backend_of(x), block_d=block_d,
+                      block_t=block_t)
+    return _rglru.make_kernel(b, s, d, cfg, block_d=block_d,
+                              block_t=block_t)(x, r, i, a_param)

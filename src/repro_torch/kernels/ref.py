@@ -556,3 +556,68 @@ def embed_gather(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     vocab = table.shape[0]
     i = ids.long()
     return table[torch.where(i < 0, i + vocab, i).clamp(0, vocab - 1)].float()
+
+
+def windowed_gather(idx: torch.Tensor, tbl: torch.Tensor,
+                    ai: int = 6) -> torch.Tensor:
+    """``out[i] = chain(tbl[idx[i]])`` with ``2 * ai`` ops
+    (`repro/kernels/windowed_gather.py:106`): the one-table gather of
+    `gather_stream`, whatever window the kernel stages it through."""
+    return _arith_chain([tbl[idx.long()].reshape(1, -1)], ai * 2).reshape(-1)
+
+
+# -- Mamba-2 SSD and RG-LRU (`repro/kernels/ref.py:177`, `:257-268`) ----------
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Naive (quadratic-in-S, exact) SSD oracle.
+
+    x:(b,s,h,p) dt:(b,s,h) A:(h,) B:(b,s,g,n) C:(b,s,g,n); g divides h.
+    y[t] = sum_{u<=t} C[t]·B[u] * exp(sum_{u<v<=t} dA[v]) * dt[u] * x[u].
+    ``chunk`` is unused, as in the reference."""
+    del chunk
+    b, s, h, p = x.shape
+    rep = h // B.shape[2]
+    Bh = B.repeat_interleave(rep, dim=2)                # (b,s,h,n)
+    Ch = C.repeat_interleave(rep, dim=2)
+    cum = torch.cumsum(dt * A[None, None, :], dim=1)    # (b,s,h)
+    diff = cum[:, :, None, :] - cum[:, None, :, :]      # (b,t,u,h)
+    tids = torch.arange(s, device=x.device)
+    causal = (tids[:, None] >= tids[None, :])[None, :, :, None]
+    # double where: the non-causal exponent is clamped before exp
+    diff = torch.where(causal, diff, 0.0)
+    L = torch.where(causal, torch.exp(diff), 0.0)
+    CB = torch.einsum("bthn,buhn->btuh", Ch, Bh)
+    W = CB * L * dt[:, None, :, :]
+    return torch.einsum("btuh,buhp->bthp", W, x)
+
+
+RGLRU_C = 8.0
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """JAX's softplus, ``logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)),
+    with no threshold (unlike `F.softplus`)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def rglru(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
+          a_param: torch.Tensor) -> torch.Tensor:
+    """RG-LRU oracle: h_t = a_t * h_{t-1} + sqrt(1-a_t^2) * (i_t * x_t),
+    the sequential recurrence from h = 0.
+
+    x,r,i: (b,s,d) (r,i are pre-sigmoid gates), a_param: (d,) pre-softplus.
+    a_t = exp(-c * softplus(a_param) * sigmoid(r_t))."""
+    rg = torch.sigmoid(r)
+    ig = torch.sigmoid(i)
+    log_a = -RGLRU_C * softplus(a_param)[None, None, :] * rg   # (b,s,d)
+    a = torch.exp(log_a)
+    gated = ig * x
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    b, s, d = x.shape
+    h = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        h = a[:, t] * h + mult[:, t] * gated[:, t]
+        out[:, t] = h
+    return out

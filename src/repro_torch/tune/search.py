@@ -22,9 +22,6 @@ Two things differ from the reference, and only these two:
   for the spec intersected with what the port's kernel of that family
   takes (`kernel_takes`: the wrappers' own ``takes`` / ``tileable``
   rules), so a tuned label never reaches a wrapper that refuses it.
-
-The SSD and RG-LRU families have no kernel in the port yet (ROADMAP Queue
-2) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,7 +37,9 @@ from repro_torch.kernels import embed_gather as _embed
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_ffn as _moe
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sparse_attention as _sparse
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.tune.cache import KernelSpec, TuningCache, default_cache
 
 DEGREES = (1, 2, 4, 8)
@@ -59,16 +58,8 @@ MAX_GRID_Y = 65535                  # the stencil's program axis
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4,
                 "int8": 1}
 
-NOT_PORTED = ("ssd", "rglru")
-
 # counts search() invocations; tests hold that cache hits skip it
 SEARCH_COUNT = 0
-
-
-def _not_ported(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{family}: the port has no kernel of this family yet (ROADMAP "
-        f"Queue 2)")
 
 
 class NoCandidate(ValueError):
@@ -197,8 +188,24 @@ def _reference_candidates(spec: KernelSpec, degrees, replications,
         for kind, deg in _kind_degree_pairs(degrees):
             if e % deg == 0:
                 out.append(CoarseningConfig(kind, deg))
-    elif fam in NOT_PORTED:
-        raise _not_ported(fam)
+    elif fam == "ssd":
+        b, h, g, s, pp, nn = spec.shape
+        if s % p.get("chunk", 64) == 0:
+            for kind, deg in _kind_degree_pairs(degrees):
+                if h % deg:
+                    continue
+                if kind == KIND_GAPPED and g != 1:
+                    continue
+                if kind == KIND_CONSECUTIVE and (h // g) % deg:
+                    continue
+                out.append(CoarseningConfig(kind, deg))
+    elif fam == "rglru":
+        b, s, d = spec.shape
+        bd, bt = p.get("block_d", 128), p.get("block_t", 64)
+        if s % bt == 0:
+            for kind, deg in _kind_degree_pairs(degrees):
+                if d % (bd * deg) == 0:
+                    out.append(CoarseningConfig(kind, deg))
     else:
         raise ValueError(f"unknown tunable family {spec.family!r}")
     return out
@@ -252,8 +259,11 @@ def kernel_takes(spec: KernelSpec, cfg: CoarseningConfig) -> bool:
     if fam == "moe_ffn":
         e, cap, d, f = spec.shape
         return _moe.takes(d, f, p.get("wbits"), p.get("group") or 0)
-    if fam in NOT_PORTED:
-        raise _not_ported(fam)
+    if fam == "ssd":
+        b, h, g, s, pp, n = spec.shape
+        return _ssd.takes(h, g, n, pp, p.get("chunk", 64), cfg)
+    if fam == "rglru":
+        return _rglru.takes(spec.shape[1], cfg, p.get("block_d", 128))
     raise ValueError(f"unknown tunable family {spec.family!r}")
 
 
@@ -336,8 +346,25 @@ def work(spec: KernelSpec) -> tuple[float, float, float]:
         w = 3 * e * d * f * (wbits / 8 if wbits else elem)
         return (e * cap * d * elem + w + 4 * e * cap * (d + 1),
                 6.0 * e * cap * d * f, BF16_FLOPS)
-    if fam in NOT_PORTED:
-        raise _not_ported(fam)
+    if fam == "ssd":
+        b, h, g, s, pp, n = spec.shape
+        chunk = p.get("chunk", 64)
+        nc = s // chunk
+        # x, dt, B, C in and y out; what the function needs of the causal
+        # products: the lower triangle of C.B^T once per (batch, group,
+        # chunk) and of the intra-chunk W.x per (batch, head, chunk), the
+        # state read after chunk 0 (the state is zero there) and the state
+        # update before the last chunk per (batch, head)
+        io = 4 * (2 * b * h * s * pp + b * h * s + h + 2 * b * g * s * n)
+        tri = chunk * (chunk + 1)
+        ops = float(b * (g * nc * n * tri + h * (
+            nc * pp * tri + (nc - 1) * 4 * chunk * n * pp)))
+        return io, ops, FP32_FLOPS
+    if fam == "rglru":
+        # x, r, i in and h out, a_param once; 17 f32 operations an element
+        # (each exp, log1p and sqrt counted once), far below the bytes
+        b, s, d = spec.shape
+        return (4 * b * s * d + d) * 4, 17.0 * b * s * d, FP32_FLOPS
     raise ValueError(f"unknown tunable family {spec.family!r}")
 
 

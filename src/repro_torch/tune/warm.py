@@ -421,10 +421,37 @@ def _case(spec: KernelSpec, cfg, device="cuda"):
                           for w in (w1, w3, w2))
             return lambda: ops.quant_moe_ffn(xe, q1, q3, q2, wts, cfg)
         return lambda: ops.moe_ffn(xe, w1, w3, w2, wts, cfg)
-    if fam in ("ssd", "rglru"):
-        raise NotImplementedError(f"wall_measurer: {fam} is not ported yet "
-                                  f"(ROADMAP Queue 2)")
+    if fam == "ssd":
+        args = ssd_inputs(spec.shape, gen, device)
+        return lambda: ops.ssd(*args, cfg, chunk=p.get("chunk", 64))
+    if fam == "rglru":
+        args = rglru_inputs(spec.shape, gen, device)
+        return lambda: ops.rglru(*args, cfg, block_d=p.get("block_d", 128),
+                                 block_t=p.get("block_t", 64))
     raise ValueError(f"wall_measurer: unsupported family {fam!r}")
+
+
+def ssd_inputs(shape, gen: torch.Generator, device) -> tuple:
+    """(x, dt, a, bmat, cmat) of an SSD spec's shape (b, h, g, s, p, n),
+    at the reference measurer's scales (`repro/tune/warm.py:422-434`):
+    x and B, C normal * 0.5, dt = softplus(normal), a = -softplus(normal)
+    (softplus as JAX writes it)."""
+    from repro_torch.kernels.ref import softplus
+    b, h, g, s, p, n = shape
+    x, dt, a, bm, cm = (torch.randn(size, generator=gen, device=device)
+                        for size in ((b, h, s, p), (b, h, s), (h,),
+                                     (b, g, s, n), (b, g, s, n)))
+    return x * 0.5, softplus(dt), -softplus(a), bm * 0.5, cm * 0.5
+
+
+def rglru_inputs(shape, gen: torch.Generator, device) -> tuple:
+    """(x, r, i, a_param) of an RG-LRU spec's shape (b, s, d), at the
+    reference measurer's scales (`repro/tune/warm.py:435-441`): x normal *
+    0.5, the gates and a_param normal."""
+    b, s, d = shape
+    x, r, i, a_param = (torch.randn(size, generator=gen, device=device)
+                        for size in ((b, s, d),) * 3 + ((d,),))
+    return x * 0.5, r, i, a_param
 
 
 def wall_measurer(reps: int = DEFAULT_REPS):

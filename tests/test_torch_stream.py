@@ -2,7 +2,10 @@
 row plans (fields and element-to-program maps, every label), the index
 generator, the four ops (`ew_stream`, `gather_stream`, `stencil5`,
 `dp_scan`) against `repro.kernels.ops` in interpret mode at the reference
-tests' sizes (`tests/test_kernels.py`), and the figure sweeps' rows.
+tests' sizes (`tests/test_kernels.py`), the windowed gather (row 17: its
+`make_kernel` against the Pallas one in interpret mode, the host planner,
+the staged windows, the refusals and owner maps), and the figure sweeps'
+rows.
 
 Every product in these functions is by a power of two and both sides add
 in the same order, so the port's plain versions must equal the reference
@@ -30,6 +33,7 @@ from repro_torch.kernels import gather_stream as tgs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stencil as tst
+from repro_torch.kernels import windowed_gather as twg
 
 ROOT = Path(__file__).resolve().parents[1]
 LABELS = bench.labels() + ["gap2+pipe4", "gap4+simd2"]
@@ -230,6 +234,147 @@ def test_probe_owner_maps_on_the_cpu():
     owners = tst.stencil5(torch.zeros(64, 32), cfg, probe=True)
     assert torch.equal(owners[:, 0],
                        TC.row_owners(TC.plan_rows(64, cfg, 8)).float())
+
+
+# -- row 17: the windowed gather ----------------------------------------------
+
+WG_N = 1 << 13
+
+
+def _wg_inputs(n, table, window, seed=7):
+    idx = jgs.make_indices(n, table, window, seed=seed)
+    tbl = np.random.default_rng(seed + 1).standard_normal(table) \
+        .astype(np.float32)
+    return idx, tbl
+
+
+def _reference_planner(run):
+    """The reference's host planner, a local of its `make_kernel`
+    (`repro/kernels/windowed_gather.py:87`), read off `run`'s closure."""
+    cells = dict(zip(run.__code__.co_freevars, run.__closure__))
+    return cells["plan_bases"].cell_contents
+
+
+def _staged(run, idx, tbl, window):
+    """The card kernel's reads, emulated: each (program, slice) stages rows
+    clamp(base) and clamp(base + 1) of the (T/L, L) view and reads each id
+    at its offset from base * L, clamped into the 2L window."""
+    plan, bases = run.plan, run.plan_bases(idx)
+    rows = tbl.reshape(-1, window)
+    view = idx.reshape(plan.view_shape)
+    out = np.empty(view.shape, np.float32)
+    for i in range(plan.grid):
+        for k in range(plan.cfg.degree):
+            at = (i, k) if plan.contiguous else (k, i)
+            r0, r1 = (np.clip(bases[i, k] + d, 0, rows.shape[0] - 1)
+                      for d in (0, 1))
+            win = np.concatenate([rows[r0], rows[r1]])
+            local = np.clip(view[at] - bases[i, k] * window, 0,
+                            2 * window - 1)
+            out[at] = win[local]
+    return out.reshape(-1)
+
+
+WG_LABELS = ["none", "con2", "con4", "gap2", "gap4"]
+WG_MORE = ["pipe8", "con4+pipe2", "con2+simd2", "simd4"]
+
+
+@pytest.mark.parametrize("spec,window,block",
+                         [(s, 1024, 256) for s in WG_LABELS + WG_MORE]
+                         + [(s, 512, 512) for s in WG_LABELS])
+def test_windowed_gather_matches_the_pallas_kernel(spec, window, block):
+    """`tests/test_kernels.py:217-230` and more labels, bit for bit; the
+    port's planner equals the reference's, and the windows the card's
+    kernel stages hold every id of their slice."""
+    from repro.kernels import windowed_gather as jwg
+    jcfg, tcfg = _both(spec)
+    idx, tbl = _wg_inputs(WG_N, WG_N, window)
+    jrun = jwg.make_kernel(WG_N, WG_N, jcfg, window=window, block=block)
+    want = np.asarray(jrun(jnp.asarray(idx), jnp.asarray(tbl)))
+    run = twg.make_kernel(WG_N, WG_N, tcfg, window=window, block=block)
+    _bits_equal(run(torch.from_numpy(idx), torch.from_numpy(tbl)), want)
+    np.testing.assert_array_equal(run.plan_bases(idx),
+                                  _reference_planner(jrun)(idx))
+    # row 16's gather with one table is the same function, unwindowed
+    _bits_equal(tref.gather_stream([torch.from_numpy(tbl)],
+                                   torch.from_numpy(idx), ai=6), want)
+    np.testing.assert_array_equal(_staged(run, idx, tbl, window),
+                                  tbl[idx])
+
+
+def test_windowed_gather_plain_version_matches_the_reference():
+    from repro.kernels import windowed_gather as jwg
+    idx, tbl = _wg_inputs(4096, 2048, 64, seed=9)
+    for ai in (1, 6, 10):
+        _bits_equal(tref.windowed_gather(torch.from_numpy(idx),
+                                         torch.from_numpy(tbl), ai),
+                    jwg.ref(jnp.asarray(idx), jnp.asarray(tbl), ai))
+
+
+def test_windowed_gather_table_equal_to_window():
+    """The reference's planner gives base row -1 here (n_rows - 2); its
+    clamped block index reads the right rows, and so do the port's clamped
+    window rows."""
+    from repro.kernels import windowed_gather as jwg
+    n, table, window = 4096, 1024, 1024
+    idx, tbl = _wg_inputs(n, table, window)
+    for spec in ("none", "con2", "gap2"):
+        jcfg, tcfg = _both(spec)
+        jrun = jwg.make_kernel(n, table, jcfg, window=window, block=256)
+        want = np.asarray(jrun(jnp.asarray(idx), jnp.asarray(tbl)))
+        run = twg.make_kernel(n, table, tcfg, window=window, block=256)
+        assert (run.plan_bases(idx) == -1).all()
+        np.testing.assert_array_equal(run.plan_bases(idx),
+                                      _reference_planner(jrun)(idx))
+        _bits_equal(run(torch.from_numpy(idx), torch.from_numpy(tbl)), want)
+        np.testing.assert_array_equal(_staged(run, idx, tbl, window),
+                                      tbl[idx])
+
+
+def test_windowed_gather_rejects_bad_geometry():
+    """`tests/test_kernels.py:232-236` on both sides."""
+    from repro.kernels import windowed_gather as jwg
+    with pytest.raises(ValueError):
+        jwg.make_kernel(1 << 12, 1 << 12, JC.CoarseningConfig(), window=100,
+                        block=256)
+    with pytest.raises(ValueError, match="block <= window"):
+        twg.make_kernel(1 << 12, 1 << 12, TC.CoarseningConfig(), window=100,
+                        block=256)
+
+
+@pytest.mark.parametrize("spec", ["simd8", "con2+simd8", "gap2+simd8"])
+def test_windowed_gather_refuses_a_slice_longer_than_the_window(spec):
+    """simd8 at window 1024, block 256: slices of 2048 ids span two
+    locality runs, which the reference computes wrongly (ROADMAP, faults of
+    the reference); the port refuses at `make_kernel`, before any launch."""
+    before = twg.launches
+    with pytest.raises(ValueError, match="must divide the window"):
+        twg.make_kernel(1 << 14, 1 << 14, spec, window=1024, block=256)
+    assert twg.launches == before
+
+
+def test_windowed_gather_refuses_a_window_it_cannot_stage():
+    n = table = 1 << 16
+    assert twg.takes(1 << 14) and not twg.takes(1 << 15)
+    run = twg.make_kernel(n, table, "base", window=1 << 15, block=256)
+    before = twg.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        run(torch.empty(n, dtype=torch.int32, device="meta"),
+            torch.empty(table, device="meta"))
+    assert twg.launches == before
+
+
+@pytest.mark.parametrize("spec", bench.labels())
+def test_windowed_gather_probe_owner_map(spec):
+    """``probe=True`` on the CPU is the plan's map, which is the
+    reference plan's BlockSpec map, for every label the port takes."""
+    jcfg, tcfg = _both(spec)
+    n, window, block = 1 << 14, 4096, 512
+    idx, tbl = _wg_inputs(n, n, window)
+    run = twg.make_kernel(n, n, tcfg, window=window, block=block)
+    got = run(torch.from_numpy(idx), torch.from_numpy(tbl), probe=True)
+    np.testing.assert_array_equal(
+        got.numpy(), _ref_stream_owners(JC.plan_stream(n, jcfg, block)))
 
 
 # -- the figure sweeps --------------------------------------------------------

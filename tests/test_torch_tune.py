@@ -3,7 +3,8 @@ kernel's plain version, held against the JAX package on the CPU.
 
 * Legality: the port's candidates are a subset of the reference's for every
   spec the warm builds, and every one of them is taken by its kernel's own
-  rule.
+  rule; for the SSD and RG-LRU families (which no warm spec selects) they
+  are the reference's intersected with the kernels' ``takes``.
 * Keys: `warm_for_model` files the reference's spec keys, and every op and
   layer dispatch files the reference op's key for the same call (backend
   aside: the reference files "pallas", the port "cuda", or "ref" on its
@@ -53,7 +54,9 @@ from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import moe_ffn as tmoe
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rglru as trg
 from repro_torch.kernels import sparse_attention as tsp
+from repro_torch.kernels import ssd as tssd
 from repro_torch.models import layers as TL
 from repro_torch.quant import quantize as t_quantize
 from repro_torch.quant import quantize_kv as t_quantize_kv
@@ -166,6 +169,11 @@ def _taken(spec, cfg) -> bool:
     if fam == "moe_ffn":
         e, c, d, f = spec.shape
         return tmoe.takes(d, f, p.get("wbits"), p.get("group", 0))
+    if fam == "ssd":
+        b, h, g, s, pp, n = spec.shape
+        return tssd.takes(h, g, n, pp, p["chunk"], cfg)
+    if fam == "rglru":
+        return trg.takes(spec.shape[1], cfg, p["block_d"])
     raise AssertionError(fam)
 
 
@@ -202,10 +210,23 @@ def test_labels_the_kernels_refuse_are_not_enumerated():
     eg = tcache.KernelSpec.make("embed_gather", (2048, 100, 6), block=256)
     with pytest.raises(tsearch.NoCandidate):
         tsearch.search(eg)
-    for fam, shape in (("ssd", (1, 8, 1, 128, 64, 16)), ("rglru",
-                                                          (1, 128, 256))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsearch.enumerate_candidates(tcache.KernelSpec.make(fam, shape))
+    # ssd and rglru: the reference's candidates that `takes` admits
+    for spec, refused in (
+            (tcache.KernelSpec.make("ssd", (1, 8, 1, 128, 64, 16), chunk=64),
+             set()),
+            (tcache.KernelSpec.make("ssd", (1, 8, 2, 128, 64, 16), chunk=32),
+             set()),
+            (tcache.KernelSpec.make("ssd", (1, 8, 1, 128, 64, 16), chunk=16),
+             {"base", "con2", "gap2", "con4", "gap4", "con8", "gap8"}),
+            (tcache.KernelSpec.make("rglru", (1, 128, 256), block_d=128,
+                                    block_t=64), set()),
+            (tcache.KernelSpec.make("rglru", (1, 128, 2048), block_d=256,
+                                    block_t=64), {"con8", "gap8"})):
+        theirs = _labels(jsearch.enumerate_candidates(_jspec(spec)))
+        ours = _labels(tsearch.enumerate_candidates(spec))
+        assert ours == [lab for lab in theirs
+                        if _taken(spec, CoarseningConfig.parse(lab))]
+        assert set(theirs) - set(ours) == refused, spec.key
 
 
 # -- keys ---------------------------------------------------------------------
@@ -411,6 +432,22 @@ def _ops_cases():
     cases["quant_moe_ffn"] = (
         lambda: jops.quant_moe_ffn(jxe, *jqw, jc, "auto"),
         lambda: tops.quant_moe_ffn(txe, *tqw, tc, "auto"))
+    # ssd: B 1, H 4, G 2, S 128, P 8, N 4 (kernel layout); rglru (1, 64, 256)
+    sargs = [_pair(a, "float32") for a in (
+        r.standard_normal((1, 4, 128, 8)) * 0.5,
+        r.uniform(0.01, 0.2, (1, 4, 128)), -r.uniform(0.5, 1.5, 4),
+        r.standard_normal((1, 2, 128, 4)) * 0.3,
+        r.standard_normal((1, 2, 128, 4)) * 0.3)]
+    cases["ssd"] = (
+        lambda: jops.ssd(*[a[0] for a in sargs], "auto", chunk=64),
+        lambda: tops.ssd(*[a[1] for a in sargs], "auto", chunk=64))
+    rargs = [_pair(r.standard_normal(shape).astype(np.float32), "float32")
+             for shape in ((1, 64, 256),) * 3 + ((256,),)]
+    cases["rglru"] = (
+        lambda: jops.rglru(*[a[0] for a in rargs], "auto", block_d=64,
+                           block_t=32),
+        lambda: tops.rglru(*[a[1] for a in rargs], "auto", block_d=64,
+                           block_t=32))
     return cases
 
 
@@ -615,6 +652,28 @@ def test_the_bound_ranks_base_first_and_greedy_measures_in_order():
     assert res.source == "measured"
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 1, 8, 4, 4), (2, 4, 2, 12, 8, 4),
+                                   (1, 2, 2, 4, 4, 8)])
+def test_the_ssd_bound_counts_what_the_function_needs(shape):
+    # counted term by term: C.B^T and W.x only where u <= t, no state read
+    # in the first chunk (it is zero) and no state update after the last
+    b, h, g, s, p, n = shape
+    chunk = 4
+    nc = s // chunk
+    ops = 0
+    for ci in range(nc):
+        for t in range(chunk):
+            for u in range(t + 1):
+                ops += b * g * 2 * n + b * h * 2 * p
+            if ci > 0:
+                ops += b * h * 2 * n * p
+            if ci < nc - 1:
+                ops += b * h * 2 * n * p
+    io = 4 * (2 * b * h * s * p + b * h * s + h + 2 * b * g * s * n)
+    spec = tcache.KernelSpec.make("ssd", shape, chunk=chunk)
+    assert tsearch.work(spec) == (io, ops, tsearch.FP32_FLOPS)
+
+
 # -- the cache ----------------------------------------------------------------
 
 SPEC = tcache.KernelSpec.make("matmul", (1024, 512, 256), dtype="bfloat16",
@@ -775,6 +834,8 @@ SMALL_SPECS = [
     tcache.KernelSpec.make("moe_ffn", (4, 8, 64, 64), dtype="bfloat16"),
     tcache.KernelSpec.make("moe_ffn", (4, 8, 64, 64), dtype="bfloat16",
                            wbits=8, group=0),
+    tcache.KernelSpec.make("ssd", (1, 4, 1, 64, 8, 4), chunk=64),
+    tcache.KernelSpec.make("rglru", (1, 64, 256), block_d=64, block_t=32),
 ]
 
 
@@ -787,9 +848,9 @@ def test_measurer_builds_every_family(spec):
     out = twarm._case(spec, cfg, device="cpu")()
     leaves = out if isinstance(out, tuple) else (out,)
     assert all(torch.isfinite(t.float()).all() for t in leaves)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twarm._case(tcache.KernelSpec.make("rglru", (1, 64, 128)), BASE,
-                    device="cpu")
+    rg = twarm._case(tcache.KernelSpec.make("rglru", (1, 64, 128)), BASE,
+                     device="cpu")()
+    assert rg.shape == (1, 64, 128) and torch.isfinite(rg).all()
 
 
 # -- the launchers ------------------------------------------------------------
