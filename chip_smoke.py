@@ -33,7 +33,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    MoE FFN (capacities 128 and 8), its dequant-fused twin (int8 and int4)
    and the dequant-fused matmul (int8 and int4), each error printed as a
    ratio of its limit beside a fault model (a lost page of V scales, a lost
-   expert, a lost scale, swapped nibbles) that must exceed it. The
+   expert, a lost scale, swapped nibbles) that must exceed it; the
+   dequant-fused matmul also at qwen3-0.6b's FFN products, each case
+   launched twice with bit-equal outputs, and each product timed alone
+   beside its K split, grid and the build's registers and spills. The
    contiguous split-KV decode (bf16 and int8 caches, B 8, S 1024, bkv 128,
    one slot at pos S + 6) and the short-q verify (bf16 and int8 pools, T 5,
    page 16) for every label, with and without a window, beside their fault
@@ -862,10 +865,16 @@ MOE_EPS = 2.0 ** -7
 # group.
 QMOE_EPS = 2.0 ** -12
 # Row 10: an f32 dot of K exact products in any order is within K * 2^-24
-# of |a| @ |w|; the scale applied after the sum adds one rounding.
+# of |a| @ |w|; the scale applied after the sum adds one rounding.  The
+# kernel splits K over the blocks of a cluster and adds the slices' sums in
+# slice order: two launches must give the same bits.
 QMM_MAIN = ((128, 2048, 5632), (128, 2048, 5632), (128, 5632, 2048))
+# qwen3-0.6b's FFN (hf:Qwen/Qwen3-0.6B, d 1024, d_ff 3072) at a prefill
+# chunk of 128 rows, where the split differs most (S 4 and S 9 > 8)
+QMM_QWEN3 = ((128, 1024, 3072), (128, 3072, 1024))
 QMM_CASES = [((128, 2048, 5632), "base"), ((128, 5632, 2048), "base"),
-             ((256, 2048, 5632), "con2"), ((256, 2048, 5632), "gap2")]
+             ((256, 2048, 5632), "con2"), ((256, 2048, 5632), "gap2"),
+             *((shape, "base") for shape in QMM_QWEN3)]
 # int8-pool decode at qwen2-moe's attention (16/16 heads, hd 128), 8 slots,
 # max_len 512 at page size 16; the limit is the bf16 kernel's (DEC_ULPS)
 DEC8 = dict(b=8, h=16, hkv=16, d=128, ps=16, npp=32)
@@ -1058,12 +1067,23 @@ def swapped_nibbles(qw):
     return dataclasses.replace(qw, q=q)
 
 
+def qmm_build_line(bits: int, degree: int) -> str:
+    """The ptxas registers / spills of the dequant-fused kernel's instance
+    (from this run's build), or "not printed"."""
+    tag = f"qmm_kernelILi{bits}ELi{degree}E"
+    lines = [ln.split(":", 1)[1].strip() for ln in
+             _build.REPORTS.get("quant_matmul", []) if tag in ln]
+    return lines[0] if lines else "not printed"
+
+
 def quant_matmul_phase(gen) -> dict:
     """Row 10 (`matmul.py:142`): int8 and int4 at the shared-expert FFN's
-    prefill products (and con2 / gap2 at M = 256); swapped nibbles (int4)
-    and a lost column scale (int8) as fault models; times of the three
-    products of one prefill chunk."""
+    prefill products (and con2 / gap2 at M = 256) and at qwen3-0.6b's;
+    swapped nibbles (int4) and a lost column scale (int8) as fault models;
+    two launches bit-equal; times of the three products of one prefill
+    chunk, then of each product with its K split."""
     worst = 0.0
+    sms = mm_mod.sm_count(torch.device("cuda"))
     for bits in (8, 4):
         for (m, k, n), label in QMM_CASES:
             a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
@@ -1080,15 +1100,23 @@ def quant_matmul_phase(gen) -> dict:
                     "column 0's scale lost"
             fault = limit_ratio(ref.quant_matmul(a, bad_w), want, tol)
             got = ops.quant_matmul(a, qw, label)
+            again = ops.quant_matmul(a, qw, label)
             torch.cuda.synchronize()
             r = limit_ratio(got, want, tol)
             err = (got - want).abs().max().item()
+            same = torch.equal(got, again)
+            plan = mm_mod.split_plan(m, n, k, label, bits, qw.group, sms)
             print(f"quant_matmul int{bits} ({m}x{k})@({k}x{n}) {label}: "
                   f"max|kernel-plain| {err:.3e}; max error / limit {r:.4f}; "
-                  f"fault model ({what}) / limit {fault:.1f}", flush=True)
+                  f"fault model ({what}) / limit {fault:.1f}; S "
+                  f"{plan.splits}; two launches bit-equal: {same}",
+                  flush=True)
             if not r <= 1:
                 raise SystemExit(f"quant_matmul int{bits} {label} disagrees "
                                  f"with its plain version")
+            if not same:
+                raise SystemExit(f"quant_matmul int{bits} {label} gave "
+                                 f"other bits on a second launch")
             if not fault > 1:
                 raise SystemExit(f"the quant_matmul limit would not catch "
                                  f"{what}")
@@ -1117,6 +1145,24 @@ def quant_matmul_phase(gen) -> dict:
               f"{bms:.4f} ms ({by}) | plain {t['plain_ms']:.4f} ms | "
               f"torch.matmul on the dequantized bf16 weight "
               f"{t['library_ms']:.4f} ms", flush=True)
+        # each product alone: the shared expert's gate (= up) and down,
+        # qwen3-0.6b's up and down
+        for m, k, n in (*QMM_MAIN[1:], *QMM_QWEN3):
+            a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            qw = quantize(torch.randn(k, n, generator=gen, device="cuda")
+                          / math.sqrt(k), f"int{bits}")
+            wd = dequantize(qw).bfloat16()
+            plan = mm_mod.split_plan(m, n, k, BASE, bits, qw.group, sms)
+            one, one_by = bound(2 * m * k + qw.nbytes + 4 * m * n,
+                                2 * m * n * k)
+            print(f"quant_matmul int{bits} ({m}x{k})@({k}x{n}) base: kernel "
+                  f"{time_ms(lambda: ops.quant_matmul(a, qw)):.4f} ms | "
+                  f"bound {one:.4f} ms ({one_by}) | torch.matmul "
+                  f"{time_ms(lambda: torch.matmul(a, wd)):.4f} ms | S "
+                  f"{plan.splits}, grid {plan.grid} = {plan.blocks} blocks "
+                  f"on {sms} SMs | build: {qmm_build_line(bits, 1)}",
+                  flush=True)
+            del a, qw, wd
     return {"name": "quant_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
             "replaces": "src/repro/kernels/matmul.py:142",

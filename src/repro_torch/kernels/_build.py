@@ -7,7 +7,7 @@ A library's file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
 library is never loaded.  ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills) is printed once, one line per kernel, when a
-library is built.
+library is built, and kept in ``REPORTS``.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -61,7 +61,7 @@ SIGNATURES = {
         "quant_moe_ffn": [_P] * 10 + [_I] * 8 + [_P],
     },
     "quant_matmul": {
-        "quant_matmul": [_P] * 4 + [_I] * 7 + [_P],
+        "quant_matmul": [_P] * 4 + [_I] * 8 + [_P],
     },
     "stream": {
         "ew_stream_f32": [_P, _I, _P, _L] + [_I] * 8 + [_P],
@@ -89,6 +89,7 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+REPORTS: dict[str, list[str]] = {}  # source -> its kernels' ptxas lines
 
 
 def _nvcc() -> str:
@@ -151,7 +152,8 @@ def build(names=SOURCES) -> dict[str, Path]:
                 Path(tmp).unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for {n}.cu:\n{log}")
             os.replace(tmp, out)
-            print(f"[build] {out.name}\n" + "\n".join(_report(log)),
+            REPORTS[n] = _report(log)
+            print(f"[build] {out.name}\n" + "\n".join(REPORTS[n]),
                   flush=True)
         paths[n] = out
     return paths

@@ -1,6 +1,5 @@
-// A blocked tensor-core GEMM tile for Hopper (sm_90a), shared by the MoE
-// FFN kernels (`moe_ffn.cu`) and the dequant-fused matmul
-// (`quant_matmul.cu`).
+// A blocked tensor-core GEMM tile for Hopper (sm_90a), used by the MoE FFN
+// kernels (`moe_ffn.cu`).
 //
 // One thread block (256 threads, 8 warps) owns BN = 64 output columns and
 // a chunk of MR = 2 * MT * 16 rows, and walks the contraction axis in
@@ -60,7 +59,6 @@ struct Params {
   void* out;                       // (batch * rows, N) bf16 or f32
   int rows, n, k, group;
   int batch, degree, gapped;       // batch items (experts), coarsening
-  int row_blocks;                  // 1: rows coarsened in 128-row blocks
 };
 
 // D[16x8] += A[16x16] * B[16x8]; the PTX ISA fragment layouts with
@@ -126,15 +124,10 @@ __device__ __forceinline__ uint4 widen_i4(uint32_t lo4, uint32_t hi4,
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
-// rows of a block's chunk: MoE (row_blocks 0) rows are the batch item's
-// own rows m0 + r; a coarsened matmul owns `degree` 128-row blocks,
-// adjacent (consecutive) or M/degree rows apart (gapped)
+// rows of a block's chunk: the batch item's own rows m0 + r
 __device__ __forceinline__ int global_row(const Params& p, int e, int m0,
                                           int r) {
-  if (!p.row_blocks) return e * p.rows + m0 + r;
-  if (p.gapped)
-    return (r >> 7) * (p.rows / p.degree) + blockIdx.y * 128 + (r & 127);
-  return blockIdx.y * p.degree * 128 + r;
+  return e * p.rows + m0 + r;
 }
 
 template <int MT, int NB, bool AF32, int BKIND, int EPI>
@@ -153,16 +146,14 @@ gemm_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp >> 2, wc = warp & 3;
   const int n0 = blockIdx.x * BN;
-  const int items = p.row_blocks ? 1 : p.degree;
 
-  for (int j = 0; j < items; ++j) {
-    const int e = p.row_blocks ? 0
-                  : p.gapped ? j * (p.batch / p.degree) + blockIdx.y
-                             : blockIdx.y * p.degree + j;
-    const int nchunks = p.row_blocks ? 1 : (p.rows + MR - 1) / MR;
+  for (int j = 0; j < p.degree; ++j) {
+    const int e = p.gapped ? j * (p.batch / p.degree) + blockIdx.y
+                           : blockIdx.y * p.degree + j;
+    const int nchunks = (p.rows + MR - 1) / MR;
     for (int ch = 0; ch < nchunks; ++ch) {
       const int m0 = ch * MR;
-      const int nvalid = p.row_blocks ? MR : min(MR, p.rows - m0);
+      const int nvalid = min(MR, p.rows - m0);
       __syncthreads();                            // `live` is free again
       if (tid < 2 * MT) {
         int lv = 0;

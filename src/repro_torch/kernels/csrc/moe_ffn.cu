@@ -82,7 +82,6 @@ Params base_params(const void* x, const void* comb, void* out, int e, int c,
   p.batch = e;
   p.degree = degree;
   p.gapped = gapped;
-  p.row_blocks = 0;
   return p;
 }
 

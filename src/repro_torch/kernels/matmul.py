@@ -11,15 +11,21 @@ see the source for what the design does about it.
 
 `quant_matmul` takes a packed `QTensor` weight (int8 with per-column
 scales, or int4 nibbles with per-group scales), widens it to bf16 in
-shared memory and applies the scales after the exact products.  It keeps
+registers and applies the scales after the exact products.  It keeps
 the reference's tile rule (``m % (degree*128)``, ``n % (128*vector_width)``,
-``k % 256``, ``256 % group``) and takes degree <= 2, vector_width 1.
+``k % 256``, ``256 % group``) and takes degree <= 2, vector_width 1.  Its
+K is split over the blocks of a thread-block cluster so that the grid
+fills the card (`split_plan`); the slices' partial sums are added in
+slice order, so a call gives the same bits every time.
 Bound: max(2mnk / 989 TFLOP/s, (2mk + packed weight + 4mn) / 3.35 TB/s).
 
 On CPU tensors the wrappers compute the plain versions (`ref.matmul`,
 `ref.quant_matmul`); on CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -36,7 +42,14 @@ q_launches = 0                      # dequant-fused launches since the reset
 
 # the reference qkernel's blocks (`repro/kernels/matmul.py:87`)
 Q_BM, Q_BN, Q_BK = 128, 128, 256
-Q_MAX_DEGREE = 2                    # 256 rows of f32 sums fill the registers
+Q_MAX_DEGREE = 2                    # a warpgroup a row block, two at most
+# the dequant-fused kernel's own tiles (`csrc/quant_matmul.cu`)
+Q_WN, Q_KSTEP = 64, 64              # columns of a block, K rows of a stage
+Q_PORTABLE_SPLITS = 8               # a portable cluster's blocks
+Q_MAX_SPLITS = 16                   # the most a cluster takes (non-portable)
+Q_BLOCKS_PER_SM = 2.7               # the grid's aim at degree 1 (see
+                                    # `split_plan`); half of it at degree 2
+Q_MIN_STEPS = 4                     # K steps a slice keeps where it can
 
 
 def tileable(m: int, n: int, k: int, cfg: CoarseningConfig) -> bool:
@@ -68,6 +81,58 @@ def quant_tileable(m: int, n: int, k: int, cfg: CoarseningConfig,
     return (quant_ref_tileable(m, n, k, cfg, bits, group)
             and cfg.degree <= Q_MAX_DEGREE and cfg.vector_width == 1
             and (bits != 4 or group % 16 == 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the dequant-fused kernel cuts an (m,k) @ (k,n) product: K into
+    ``splits`` slices of whole ``unit``-row pieces (the blocks of one
+    cluster); the grid (splits, n/64, m/(degree*128))."""
+    splits: int
+    unit: int
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def bounds(self, k: int) -> list[tuple[int, int]]:
+        """[k0, k1) of every slice, as the kernel computes them."""
+        units = k // self.unit
+        return [(i * units // self.splits * self.unit,
+                 (i + 1) * units // self.splits * self.unit)
+                for i in range(self.splits)]
+
+
+def split_plan(m: int, n: int, k: int, cfg: CoarseningConfig | str,
+               bits: int, group: int, sms: int) -> SplitPlan:
+    """The K split of a `quant_tileable` product on a card of ``sms`` SMs.
+    A slice is whole K steps and, for int4, whole scale groups.  The grid
+    aims at 2.7 blocks an SM at degree 1 (1.35 at degree 2, whose blocks
+    are twice the size), in a portable cluster of at most 8 slices of at
+    least 4 K steps each (a slice shorter than that is mostly the fill of
+    its ring): three blocks' rings and registers fit an SM, but clusters
+    leave some of those places empty, and a block that finds none waits
+    for a whole block's time.  Where that leaves SMs idle, up to 16
+    slices fill them."""
+    cfg = resolve(cfg)
+    c = cfg.degree
+    unit = max(Q_KSTEP, group) if bits == 4 else Q_KSTEP
+    units = k // unit
+    deep = max(1, min(units, k // (Q_MIN_STEPS * Q_KSTEP)))
+    tiles = (n // Q_WN) * (m // (c * Q_BM))
+    splits = min(int(Q_BLOCKS_PER_SM * sms / c) // tiles,
+                 Q_PORTABLE_SPLITS, deep)
+    if tiles * splits < sms:
+        splits = min(-(-sms // tiles), Q_MAX_SPLITS, units)
+    splits = max(splits, 1)
+    return SplitPlan(splits, unit, (splits, n // Q_WN, m // (c * Q_BM)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -107,10 +172,12 @@ def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 def quant_matmul(a: torch.Tensor, qw: QTensor,
-                 cfg: CoarseningConfig | str = BASE) -> torch.Tensor:
+                 cfg: CoarseningConfig | str = BASE,
+                 plan: SplitPlan | None = None) -> torch.Tensor:
     """(m,k) @ packed (k,n) -> (m,n) float32 through the dequant-fused
     kernel (int8: qw.q (k,n) + scale (1,n); int4: (k/2,n) uint8 nibbles +
-    (k/group,n))."""
+    (k/group,n)).  ``plan`` overrides `split_plan` (to measure other
+    splits, `repro_torch.bench.qmm_splits`)."""
     global q_launches
     cfg = resolve(cfg)
     if a.dim() != 2 or len(qw.shape) != 2 or a.shape[1] != qw.shape[0]:
@@ -140,11 +207,14 @@ def quant_matmul(a: torch.Tensor, qw: QTensor,
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops_):
         raise ValueError("quant_matmul kernel takes contiguous, 16-byte "
                          "aligned operands")
+    if plan is None:
+        plan = split_plan(m, n, k, cfg, qw.bits, qw.group,
+                          sm_count(a.device))
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     rc = _build.library("quant_matmul").quant_matmul(
         a.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(), out.data_ptr(),
         m, n, k, qw.bits, qw.group, cfg.degree, int(cfg.kind == KIND_GAPPED),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        plan.splits, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "quant_matmul")
     q_launches += 1
     return out
