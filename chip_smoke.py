@@ -19,10 +19,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time and the least time the card could take (``bound_ms``). The flash
    kernels are held row by row (see FLASH_ULPS), and plain-version models
    of a lost kv block, a lost block of the causal edge and a kv block lost
-   by the last q block only show that the limits catch each. The same three
+   by the last q block only show that the limits catch each, and a model
+   of an edge tile read unmasked (the diagonal blocks' mask dropped) that
+   the o limit catches it; every label's forward is launched twice and
+   must give the same bits, and each timed forward is also timed without
+   residuals beside its instance's registers and spills. The same three
    kernels at head dim 256 on the gemma3-1b train shape (B 1, H 4/1, S
    4096), causal and with window 512 (base at blocks of 128, con2 and gap2
-   at 64), under the same limits and fault models. The block-sparse flash
+   at 64), under the same limits and fault models. The forward at eleven
+   more geometries (FLASH_GEOMETRIES: every program height at head dims
+   64, 128 and 256, gapped 32-row blocks, 64-row kv blocks, windows, and
+   non-causal cross attention). The block-sparse flash
    forward on that shape (window 512) for base, con2, gap2, con4 and gap4:
    o against the plain walk of the live index, (m, l) against the dense D
    256 forward's; for five q blocks every K/V row outside that block's live
@@ -193,7 +200,7 @@ from repro_torch.bench.common import (BF16_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.coarsening import (BASE,  # noqa: E402
                                          CoarseningConfig, plan_rows,
-                                         plan_stream, row_owners,
+                                         plan_stream, resolve, row_owners,
                                          stream_owners)
 from repro_torch.kernels import chunk_scan as scan_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -446,6 +453,20 @@ def matmul_phase(gen: torch.Generator) -> dict:
 
 # -- phase 3: flash attention (forward, dQ, dK/dV) ---------------------------
 
+def build_line(source: str, tag: str) -> str:
+    """The ptxas registers / spills of the kernel instance whose mangled
+    name holds ``tag`` (from this run's build), or "not printed"."""
+    lines = [ln.split(":", 1)[1].strip() for ln in
+             _build.REPORTS.get(source, []) if tag in ln]
+    return lines[0] if lines else "not printed"
+
+
+def flash_build_line(d: int, rows: int) -> str:
+    """The forward kernel's instance for head dim ``d`` and programs of
+    ``rows`` rows (a consumer warpgroup per 64)."""
+    return build_line("flash_attention", f"flash_fwd_wsILi{d}ELi{rows // 64}E")
+
+
 def flash_inputs(gen: torch.Generator, shape: dict):
     b, h, hkv, s, d = (shape[k] for k in ("b", "h", "hkv", "s", "d"))
     q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
@@ -494,12 +515,10 @@ def flash_cond(q, k, v, do, m, l, delta, keep):
     return F32_SUMS * cq, F32_SUMS * group_sum(ck, k.shape[1])
 
 
-def flash_fault_model(q, k, v, do, m, l, delta, rows, cols, keep):
-    """Plain-PyTorch model of kernels that lose the (rows x cols) block of
-    (q, kv) pairs: the forward renormalises over what it saw, the backward
-    drops those terms from its sums -> {o, dq, dk, dv}."""
-    keep = keep.clone()
-    keep[rows, cols] = False
+def flash_fault_model(q, k, v, do, m, l, delta, keep):
+    """Plain-PyTorch model of kernels that attend to the (q, kv) pairs of
+    ``keep`` instead of the mask's: the forward renormalises over what it
+    saw, the backward sums the terms of those pairs -> {o, dq, dk, dv}."""
     p, dp, ke, ve, scale = flash_planes(q, k, v, do, m, l, keep)
     lf = p.sum(-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p / torch.where(lf == 0, 1, lf), ve)
@@ -550,24 +569,49 @@ def flash_hold(tag: str, q, k, v, do, cases, window=None) -> tuple:
     tol_l = 2.0 ** -16 * l_r
 
     for what, (rows, cols) in flash_faults(s, cases[0][1], window).items():
-        bad = flash_fault_model(q, k, v, *res_p, rows, cols, keep)
+        lost = keep.clone()
+        lost[rows, cols] = False
+        bad = flash_fault_model(q, k, v, *res_p, lost)
         dev = {n: tol_ratio(bad[n], want[n], tol[n]) for n in want}
         print(f"{tag} fault model, {what}: max deviation / limit "
               + ", ".join(f"{n} {dev[n]:.2f}" for n in want), flush=True)
         if not all(dev[n] > 1 for n in want):
             raise SystemExit(f"{tag} limits would not catch: {what}")
-        del bad
-    del keep
+        del bad, lost
+    # the forward's edge tiles read as full: every diagonal (q block, kv
+    # block) pair, an edge tile under the causal mask, unmasked
+    blk = cases[0][1]
+    diag = torch.zeros_like(keep)
+    for i in range(0, s, blk):
+        diag[i:i + blk, i:i + blk] = True
+    bad = flash_fault_model(q, k, v, *res_p, keep | diag)
+    dev = {n: tol_ratio(bad[n], want[n], tol[n]) for n in want}
+    print(f"{tag} fault model, an edge tile read unmasked (the diagonal "
+          f"blocks' mask dropped): max deviation / limit "
+          + ", ".join(f"{n} {dev[n]:.2f}" for n in want), flush=True)
+    if not dev["o"] > 1:
+        raise SystemExit(f"{tag} limits would not catch an edge tile read "
+                         f"unmasked")
+    del bad, keep, diag
 
     worst = {"flash_forward": 0.0, "flash_bwd_dq": 0.0,
              "flash_bwd_dkv": 0.0}
     for label, blk in cases:
         kw = dict(bq=blk, bkv=blk, window=window)
         o, m, l = fa_mod.flash_forward(q, k, v, label, residuals=True, **kw)
+        again = fa_mod.flash_forward(q, k, v, label, residuals=True, **kw)
         o_nr = fa_mod.flash_forward(q, k, v, label, **kw)
         dq = fa_mod.flash_bwd_dq(q, k, v, *res, label, **kw)
         dk, dv = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **kw)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((o, m, l), again))
+        print(f"{tag} {label:4s} (blocks {blk}): forward launched twice, "
+              f"o, m, l bit-equal: {same}; o without residuals bit-equal "
+              f"to o: {torch.equal(o, o_nr)}", flush=True)
+        if not same:
+            raise SystemExit(f"{tag} forward under {label} gave other bits "
+                             f"on a second launch")
+        del again
         got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
         ratio = {n: tol_ratio(got[n], want[n], tol[n]) for n in want}
         ratio["o (no residuals)"] = tol_ratio(o_nr, o_r, tol["o"])
@@ -638,14 +682,34 @@ def flash_time(tag: str, q, k, v, res, blk: int, window=None) -> dict:
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5)
+        fwd = ""
+        if name == "flash_forward":
+            fwd = (f" | no residuals "
+                   f"{time_ms(lambda: fa_mod.flash_forward(q, k, v, **geo)):.4f}"
+                   f" ms | build: {flash_build_line(d, blk)}")
         print(f"{tag} {name} timing (base, B={b} H={h} Hkv={hkv} S={s} "
               f"D={d} window={window}): kernel {ms:.4f} ms | bound "
               f"{bound_ms:.4f} ms ({bound_by}) | plain {plain_ms:.4f} ms | "
               f"sdpa {library[name]:.4f} ms"
               + (" (backward: dQ, dK, dV together)"
-                 if name != "flash_forward" else ""), flush=True)
+                 if name != "flash_forward" else fwd), flush=True)
         out[name] = (ms, plain_ms, bound_ms, bound_by, library[name])
     return out
+
+
+def flash_label_times(tag: str, q, k, v, labels, window=None) -> None:
+    """The forward under coarsened labels ((label, block rows) pairs),
+    with and without residuals, beside its instance's registers."""
+    d = q.shape[3]
+    for label, blk in labels:
+        geo = dict(bq=blk, bkv=blk, window=window)
+        t = time_ms(lambda: fa_mod.flash_forward(q, k, v, label,
+                                                 residuals=True, **geo))
+        t_nr = time_ms(lambda: fa_mod.flash_forward(q, k, v, label, **geo))
+        rows = resolve(label).degree * blk
+        print(f"{tag} flash_forward {label} (blocks {blk}) timing: "
+              f"{t:.4f} ms | no residuals {t_nr:.4f} ms | build: "
+              f"{flash_build_line(d, rows)}", flush=True)
 
 
 def flash_phase(gen: torch.Generator) -> list:
@@ -674,10 +738,14 @@ def flash_phase(gen: torch.Generator) -> list:
              time_ms(lambda: fa_mod.flash_bwd_dq(q, k, v, *res, label,
                                                  **geo)),
              time_ms(lambda: fa_mod.flash_bwd_dkv(q, k, v, *res, label,
-                                                  **geo))]
+                                                  **geo)),
+             time_ms(lambda: fa_mod.flash_forward(q, k, v, label, **geo))]
         print(f"flash {label} timing: forward {t[0]:.4f} ms | dQ "
               f"{t[1]:.4f} ms | dK/dV {t[2]:.4f} ms (base: "
-              + " | ".join(f"{o['ms']:.4f}" for o in out) + ")", flush=True)
+              + " | ".join(f"{o['ms']:.4f}" for o in out)
+              + f"); forward without residuals {t[3]:.4f} ms | build: "
+              f"{flash_build_line(q.shape[3], resolve(label).degree * blk)}",
+              flush=True)
     return out
 
 
@@ -706,10 +774,63 @@ def flash256_phase(gen: torch.Generator) -> dict:
         tag = f"flash D=256 window={window}"
         _, res = flash_hold(tag, q, k, v, do, FLASH256_CASES, window)
         out[window] = flash_time(tag, q, k, v, res, SPARSE["bq"], window)
+        flash_label_times(tag, q, k, v, FLASH256_CASES[1:], window)
         del res
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# forward geometries off the two train shapes (B 2, H 4/2, Sq 1024): every
+# program height at each head dim, gapped programs of 32-row blocks (a
+# warpgroup's 64 rows from two blocks far apart), 64-row kv blocks, a
+# window, and non-causal cross attention (Sk = 2 Sq) -> (D, label, bq,
+# bkv, causal, window, Sk)
+FLASH_GEOMETRIES = (
+    (64, "base", 64, 64, True, None, 1024),
+    (64, "con2", 64, 128, True, 200, 1024),
+    (64, "gap4", 64, 64, True, None, 1024),
+    (128, "gap2", 32, 64, True, None, 1024),
+    (128, "con8", 32, 128, True, 200, 1024),
+    (128, "gap8", 32, 64, True, 200, 1024),
+    (128, "base", 128, 64, False, None, 2048),
+    (128, "con2", 128, 128, False, None, 2048),
+    (256, "gap2", 32, 64, True, None, 1024),
+    (256, "con2", 64, 128, False, None, 2048),
+    (256, "base", 64, 64, True, 200, 1024),
+)
+
+
+def flash_geometry_phase(gen: torch.Generator) -> None:
+    """The forward at FLASH_GEOMETRIES: o (with and without residuals), m
+    and l within the flash limits of the plain version, two launches
+    bit-equal."""
+    for d, label, bq, bkv, causal, window, sk in FLASH_GEOMETRIES:
+        q = torch.randn(2, 4, 1024, d, generator=gen, device="cuda")
+        k = torch.randn(2, 2, sk, d, generator=gen, device="cuda")
+        v = torch.randn(2, 2, sk, d, generator=gen, device="cuda")
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        kw = dict(bq=bq, bkv=bkv, causal=causal, window=window)
+        o_r, m_r, l_r = ref.flash_forward(q, k, v, residuals=True, **kw)
+        o, m, l = fa_mod.flash_forward(q, k, v, label, residuals=True, **kw)
+        again = fa_mod.flash_forward(q, k, v, label, residuals=True, **kw)
+        o_nr = fa_mod.flash_forward(q, k, v, label, **kw)
+        torch.cuda.synchronize()
+        tol = flash_tol(o_r)
+        r = {"o": tol_ratio(o, o_r, tol),
+             "o (no residuals)": tol_ratio(o_nr, o_r, tol),
+             "m": (m - m_r).abs().max().item()
+             / (2.0 ** -16 * m_r.abs().max().item()),
+             "l": tol_ratio(l, l_r, 2.0 ** -16 * l_r)}
+        same = all(torch.equal(x, y) for x, y in zip((o, m, l), again))
+        print(f"flash forward D={d} {label} bq={bq} bkv={bkv} causal="
+              f"{causal} window={window} Sk={sk}: max error / limit "
+              + ", ".join(f"{n} {x:.3f}" for n, x in r.items())
+              + f"; two launches bit-equal: {same}", flush=True)
+        if not (all(x <= 1 for x in r.values()) and same):
+            raise SystemExit(f"flash forward D={d} {label} bq={bq} "
+                             f"bkv={bkv} window={window} Sk={sk} disagrees "
+                             f"with its plain version")
 
 
 def sparse_phase(gen: torch.Generator, dense_ms: float) -> dict:
@@ -1070,10 +1191,7 @@ def swapped_nibbles(qw):
 def qmm_build_line(bits: int, degree: int) -> str:
     """The ptxas registers / spills of the dequant-fused kernel's instance
     (from this run's build), or "not printed"."""
-    tag = f"qmm_kernelILi{bits}ELi{degree}E"
-    lines = [ln.split(":", 1)[1].strip() for ln in
-             _build.REPORTS.get("quant_matmul", []) if tag in ln]
-    return lines[0] if lines else "not printed"
+    return build_line("quant_matmul", f"qmm_kernelILi{bits}ELi{degree}E")
 
 
 def quant_matmul_phase(gen) -> dict:
@@ -3474,6 +3592,7 @@ def main(argv=None) -> None:
         t_kernels = time.perf_counter()
         kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
         d256 = flash256_phase(gen)
+        flash_geometry_phase(gen)
         dense_ms = d256[SPARSE["window"]]["flash_forward"][0]
         kernels += [sparse_phase(gen, dense_ms), decode_int8_phase(gen),
                     moe_phase(gen), quant_moe_phase(gen),

@@ -60,6 +60,9 @@
 // in 8 different bank groups: 16-byte chunk c of the row at byte o holds
 // chunk c ^ ((o >> 7) & 3).
 //
+// The mbarrier, TMA, descriptor and wgmma helpers are `hopper.cuh`'s
+// (shared with the flash forward).
+//
 // Coarsening, as the Pallas A view (`_a_o_layout`): a block owns `degree`
 // row blocks of 128 rows, adjacent (consecutive) or M/degree rows apart
 // (gapped), and 64 output columns; each staged weight tile serves every
@@ -70,15 +73,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace qmm {
+
+using namespace hop;
 
 constexpr int BK = 64;               // K rows per stage
 constexpr int WN = 64;               // output columns per block
 constexpr int STAGES = 3;            // the ring (3 blocks an SM fit)
 constexpr int MAX_SPLITS = 16;       // a cluster's blocks (non-portable > 8)
-constexpr int SBO = 1024;            // 8 swizzled 128-byte activation rows
 
 // A block: DEG row blocks of 128 rows by 64 columns, one warpgroup per
 // row block
@@ -110,41 +116,6 @@ struct Params {
   int unit, units;                 // K rows a slice bound respects; K/unit
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nwait_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra wait_%=;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// box (x, y) of a 2-D tensor map -> shared dst, completing on bar
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ void ldsm4_t(uint32_t& r0, uint32_t& r1,
                                         uint32_t& r2, uint32_t& r3,
                                         uint32_t addr) {
@@ -153,59 +124,6 @@ __device__ __forceinline__ void ldsm4_t(uint32_t& r0, uint32_t& r1,
       "[%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(addr));
-}
-
-// wgmma's descriptor of a 128-byte-swizzle K-major tile at shared address
-// addr (1 KB aligned, or a k16 step of 32 bytes into one)
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(SBO >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-
-// keeps the compiler from moving accesses of d across a wgmma wait
-__device__ __forceinline__ void wg_hold(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64x128] (+)= A[64x16] (registers) * B[16x128] (shared, by descriptor),
-// bf16 x bf16 -> f32; acc 0 starts a fresh sum
-__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
-                                      uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 // 4 int8 bytes r = (x0, x1, x2, x3) -> bf16 pairs (x0, x2) and (x1, x3),
@@ -335,14 +253,14 @@ qmm_kernel(const __grid_constant__ CUtensorMap ta,
     if (BITS == 8) {
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks)
-        wgmma(acc, a[ks], b0 + (uint64_t)(ks * 2), 1);
+        wgmma_rs<128, 0>(acc, a[ks], b0 + (uint64_t)(ks * 2), 1);
     } else {
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks) {
         // the first K step of a scale group starts its sums afresh
         const int k0 = kk + ks * 16;
-        wgmma(part, a[ks], b0 + (uint64_t)(ks * 2),
-              (k0 & (p.group - 1)) != 0);
+        wgmma_rs<128, 0>(part, a[ks], b0 + (uint64_t)(ks * 2),
+                         (k0 & (p.group - 1)) != 0);
         if (((k0 + 16) & (p.group - 1)) == 0) {
           // end of a scale group: acc += scale * the group's sums
           wg_commit();
@@ -410,48 +328,6 @@ qmm_kernel(const __grid_constant__ CUtensorMap ta,
   // have returned (their stores used them), so the arrive needs no release
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                             void*, const cuuint64_t*, const cuuint64_t*,
-                             const cuuint32_t*, const cuuint32_t*,
-                             CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion,
-                             CUtensorMapFloatOOBfill);
-
-inline EncodeFn encoder() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeFn>(f);
-  }
-  return fn;
-}
-
-// a 2-D map of rows of `inner` elements, `row_bytes` apart
-inline int make_map(CUtensorMap* m, CUtensorMapDataType type,
-                    const void* ptr, uint64_t inner, uint64_t outer,
-                    uint64_t row_bytes, uint32_t box_in, uint32_t box_out,
-                    CUtensorMapSwizzle swz) {
-  const EncodeFn enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_in, box_out}, es[2] = {1, 1};
-  const CUresult r = enc(m, type, 2, const_cast<void*>(ptr), dims, strides,
-                         box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int BITS, int DEG>

@@ -4,9 +4,11 @@
 
 * forward — one thread block per (batch, q-head, q-program); a q-program
   is C q-blocks of ``bq`` rows, adjacent (consecutive) or Sq/C apart
-  (gapped).  Its kv loop stages each K/V tile in shared memory once for all
-  the program's rows and carries the online softmax in registers; o is
-  float32, and (m, l) are written when residuals are asked for.
+  (gapped).  A producer warp streams each K/V tile of the program's walk
+  (`fwd_walk`) by TMA into a ring in shared memory, once for all the
+  program's rows; each consumer warpgroup of 64 rows multiplies it with
+  wgmma and carries the online softmax in registers; o is float32, and
+  (m, l) are written when residuals are asked for.
 * dQ — the forward's programs; p is recomputed from (m, l) and
   ``dq = p (dO V^T - delta) K scale``.
 * dK/dV — one block per (batch, q-head, kv-program) of C kv-blocks of
@@ -28,6 +30,7 @@ one per half of the head dim.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -71,6 +74,63 @@ def takes(d: int, degree: int, bq: int, bkv: int, *, kv_axis: bool) -> bool:
     return (d in HEAD_DIMS and rows in PROGRAM_ROWS
             and (rows < 256 or d < 256) and bq % 32 == 0
             and bkv % (16 if kv_axis else 64) == 0)
+
+
+def fwd_kv_tile(d: int, rows: int) -> int:
+    """kv rows of one stage of the forward kernel's ring (`fwd_kt` in the
+    source) for head dim ``d`` and programs of ``rows`` rows: 64, or 32
+    where four consumer warpgroups at head dim 128 or more leave too few
+    registers for a 64-column score tile beside O."""
+    return 32 if rows >= 256 and d >= 128 else 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdProgram:
+    """One q program of the forward kernel's walk."""
+    program: int             # q program index along the sequence
+    position: int            # its launch position among a head's programs
+    rows: tuple              # its global q rows, in local (shared) order
+    # the kv tiles it loads, in order: (first kv row, the tile's class for
+    # each consumer warpgroup of 64 rows, "full" or "edge")
+    tiles: tuple
+
+
+def fwd_walk(sq: int, sk: int, degree: int, gapped: bool, bq: int,
+             bkv: int, kt: int, causal: bool,
+             window: int | None) -> list[FwdProgram]:
+    """The rule the forward kernel follows (its source cites this), in
+    plain Python, one entry per q program.
+
+    The live kv blocks are those of the Pallas whole-block skip
+    (`_q_axis_mask_live`) on the program's extreme rows, a contiguous
+    range; each is loaded as ``bkv // kt`` tiles of ``kt`` rows.  A tile
+    is "full" for a warpgroup when every (row, col) pair of its rows is
+    allowed by the causal / window mask, so no mask is applied, and "edge"
+    otherwise.  Under causal masking the programs launch in reverse, the
+    ones with the most live blocks first; otherwise in order."""
+    r_prog = degree * bq
+    nprog, sg, nk = sq // r_prog, sq // degree, sk // bkv
+    out = []
+    for qi in range(nprog):
+        rows = tuple((r // bq) * sg + qi * bq + r % bq if gapped
+                     else qi * r_prog + r for r in range(r_prog))
+        k_lo, k_hi = 0, nk - 1
+        if causal:
+            k_hi = min(k_hi, rows[-1] // bkv)
+        if window is not None and rows[0] - window + 1 > 0:
+            k_lo = (rows[0] - window + 1) // bkv
+        tiles = []
+        for c0 in range(k_lo * bkv, (k_hi + 1) * bkv, kt):
+            kinds = []
+            for w in range(r_prog // 64):
+                w_lo, w_hi = rows[64 * w], rows[64 * w + 63]
+                whole = ((not causal or c0 + kt - 1 <= w_lo)
+                         and (window is None or c0 > w_hi - window))
+                kinds.append("full" if whole else "edge")
+            tiles.append((c0, tuple(kinds)))
+        out.append(FwdProgram(qi, nprog - 1 - qi if causal else qi, rows,
+                              tuple(tiles)))
+    return out
 
 
 def _launchable(tensors, cfg: CoarseningConfig, d, bq, bkv, *,
