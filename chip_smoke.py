@@ -17,19 +17,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the stated tolerance; then its time (CUDA events, L2 flushed before each
    launch, median), its plain version's time, one PyTorch library call's
    time and the least time the card could take (``bound_ms``). The flash
-   kernels are held row by row (see FLASH_ULPS), and plain-version models
-   of a lost kv block, a lost block of the causal edge and a kv block lost
-   by the last q block only show that the limits catch each, and a model
-   of an edge tile read unmasked (the diagonal blocks' mask dropped) that
-   the o limit catches it; every label's forward is launched twice and
-   must give the same bits, and each timed forward is also timed without
-   residuals beside its instance's registers and spills. The same three
+   kernels (forward, the backward's prep pass, dQ, dK/dV) are held row by
+   row (see FLASH_ULPS), causal and with a window of FLASH_WINDOW, and
+   plain-version models of a lost kv block, a lost block of the causal
+   edge and a kv block lost by the last q block only show that the limits
+   catch each, a model of an edge tile read unmasked (the diagonal blocks'
+   mask dropped) that every limit catches it (the backward's full tiles
+   read across the diagonal), and one of a q head's partial dropped from
+   the dK/dV cluster sum that the dk and dv limits catch it; prep's dO
+   must equal the cotangent rounded to bf16 and its delta lie within
+   PREP_SUMS; every label's forward, dQ and dK/dV are launched twice and
+   must give the same bits; each timed forward is also timed without
+   residuals beside its instance's registers and spills, every dQ and
+   dK/dV instance's registers and local memory are read from the loaded
+   module and local memory (a spill) fails the run, and
+   prep + dQ + dK/dV are timed together beside SDPA's backward. The same
    kernels at head dim 256 on the gemma3-1b train shape (B 1, H 4/1, S
    4096), causal and with window 512 (base at blocks of 128, con2 and gap2
    at 64), under the same limits and fault models. The forward at eleven
    more geometries (FLASH_GEOMETRIES: every program height at head dims
    64, 128 and 256, gapped 32-row blocks, 64-row kv blocks, windows, and
-   non-causal cross attention). The block-sparse flash
+   non-causal cross attention), and dQ and dK/dV at ten
+   (FLASH_BWD_GEOMETRIES: 32-row q tiles, gapped 16-row kv blocks, GQA
+   groups of 1 to 32, so clusters of 1, 2, 4, 10 and 16, windows, cross
+   attention), each beside the card's room for its cluster. The
+   block-sparse flash
    forward on that shape (window 512) for base, con2, gap2, con4 and gap4:
    o against the plain walk of the live index, (m, l) against the dense D
    256 forward's; for five q blocks every K/V row outside that block's live
@@ -126,7 +138,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (float32 master weights from a seeded generator, bf16 compute, batch 4
    x 1024 tokens, AdamW, remat none): 4 steps on the flash kernels with
    the launch counts zeroed just before and read just after (28 of each
-   kernel per step), 4 steps on the plain attention from the same weights
+   kernel per step: forward, prep, dQ, dK/dV), 4 steps on the plain attention from the same weights
    and data, whose step-0 loss, step-0 gradient norm and step-1 loss the
    kernel path must match within limits that three planted faults of the
    kernel path (dQ zeroed, dK/dV zeroed, a V tile read as zeros) exceed,
@@ -135,11 +147,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tune="exhaustive")`, 2 steps from a fresh cache (its warm printed
    candidate by candidate first), whose step-0 loss and grad norm must lie
    within the same limits of the plain path's (28 launches of each flash
-   kernel a step).  Then full-width gemma3-1b (26
+   kernel a step, prep included).  Then full-width gemma3-1b (26
    layers, 22 local with window 512, hd 256, vocab 262144, tied
    embeddings; batch 1 x 4096 tokens) for 4 steps three times: (a) the
    kernels with the block-sparse forward on the local layers (launches
-   exactly 22 x 4 sparse, 4 x 4 dense forward, 26 x 4 dQ and dK/dV), (b)
+   exactly 22 x 4 sparse, 4 x 4 dense forward, 26 x 4 prep, dQ and
+   dK/dV), (b)
    the kernels dense-mask on every layer, (c) the plain attention; (a) and
    (b) held against (c) on step-0 loss, step-0 grad norm and step-1 loss,
    four planted faults of (a) shown to exceed those limits, and the step
@@ -195,8 +208,8 @@ from repro_torch.bench import common as bench  # noqa: E402
 from repro_torch.bench import (fig8_apps, fig10_mem_divergence,  # noqa: E402
                                fig13_divdeg)
 from repro_torch.bench import fig11_ai as fig11  # noqa: E402
-from repro_torch.bench.common import (BF16_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
-                                      smi_line, time_ms)
+from repro_torch.bench.common import (BF16_FLOPS, FP32_FLOPS,  # noqa: E402
+                                      HBM_BYTES_PER_S, smi_line, time_ms)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.coarsening import (BASE,  # noqa: E402
                                          CoarseningConfig, plan_rows,
@@ -270,6 +283,8 @@ def mm_tol(k: int, ref_max: float) -> float:
 # tokens, causal, GQA 16/8, the config's bq = bkv = 128)
 FLASH = dict(b=4, h=16, hkv=8, s=1024, d=128, bq=128, bkv=128)
 FLASH_LABELS = ("base", "con2", "gap2")
+# the same shape under a sliding window whose edges fall off the block grid
+FLASH_WINDOW = 200
 # The kernels read dO as bf16 (the plain versions are handed dO rounded the
 # same way) and round p and dS to bf16 where they enter a tensor-core
 # product (2^-9 relative each), summing in f32.  Those roundings move each
@@ -515,20 +530,53 @@ def flash_cond(q, k, v, do, m, l, delta, keep):
     return F32_SUMS * cq, F32_SUMS * group_sum(ck, k.shape[1])
 
 
-def flash_fault_model(q, k, v, do, m, l, delta, keep):
+def flash_fault_model(q, k, v, do, m, l, delta, keep, drop_head=None):
     """Plain-PyTorch model of kernels that attend to the (q, kv) pairs of
     ``keep`` instead of the mask's: the forward renormalises over what it
-    saw, the backward sums the terms of those pairs -> {o, dq, dk, dv}."""
+    saw, the backward sums the terms of those pairs -> {o, dq, dk, dv}.
+    ``drop_head``: the GQA sum of dk, dv leaves that q head's partial out."""
     p, dp, ke, ve, scale = flash_planes(q, k, v, do, m, l, keep)
     lf = p.sum(-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p / torch.where(lf == 0, 1, lf), ve)
     ds = p * (dp - delta[..., None])
     del dp
     hkv = k.shape[1]
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    if drop_head is not None:
+        dk[:, drop_head] = 0
+        dv[:, drop_head] = 0
     return {"o": o, "dq": torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale,
-            "dk": group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-                            * scale, hkv),
-            "dv": group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do), hkv)}
+            "dk": group_sum(dk, hkv), "dv": group_sum(dv, hkv)}
+
+
+# delta's f32 sum over D terms, in the kernel's order and the plain
+# version's: each within D 2^-24 of sum |g o| of its row (the linear bound)
+PREP_SUMS = 2.0 * 2.0 ** -24
+
+
+def prep_hold(tag: str, o, g) -> float:
+    """Hold the prep kernel against its plain version: dO bit for bit,
+    delta within PREP_SUMS * D of each row's sum |g o| -> max|delta error|."""
+    do_k, delta_k = fa_mod.flash_bwd_prep(o, g)
+    again = fa_mod.flash_bwd_prep(o, g)
+    do_r, delta_r = ref.flash_bwd_prep(o, g)
+    torch.cuda.synchronize()
+    lim = PREP_SUMS * o.shape[-1] * (g * o).abs().sum(-1)
+    r = ((delta_k - delta_r).abs() / lim).max().item()
+    # a fault model: delta summed over the first half of D only
+    half = o.shape[-1] // 2
+    bad = (g[..., :half] * o[..., :half]).sum(-1)
+    r_bad = ((bad - delta_r).abs() / lim).max().item()
+    same = torch.equal(do_k, do_r) and all(
+        torch.equal(x, y) for x, y in zip((do_k, delta_k), again))
+    print(f"{tag} prep: dO bit-equal to g rounded to bf16, two launches "
+          f"bit-equal: {same}; delta max error / limit {r:.3f} (fault "
+          f"model, half of D summed: {r_bad:.1f})", flush=True)
+    if not (same and r <= 1 < r_bad):
+        raise SystemExit(f"{tag} prep kernel disagrees with its plain "
+                         f"version (or the limit misses its fault model)")
+    return (delta_k - delta_r).abs().max().item()
 
 
 def flash_faults(s: int, blk: int, window) -> dict:
@@ -555,9 +603,11 @@ def flash_hold(tag: str, q, k, v, do, cases, window=None) -> tuple:
     keep = flash_keep(s, window, q.device)
     geo = dict(bq=cases[0][1], bkv=cases[0][1], window=window)
     o_r, m_r, l_r = ref.flash_forward(q, k, v, residuals=True, **geo)
-    delta = (do * o_r).sum(-1)              # from the f32 cotangent, as ops
-    res = (do, m_r, l_r, delta)             # the kernels' inputs
-    res_p = (do.bfloat16().float(), m_r, l_r, delta)  # dO as they read it
+    # the prep pass from the f32 cotangent, as ops runs it
+    do_b, delta = ref.flash_bwd_prep(o_r, do)
+    err_prep = prep_hold(tag, o_r, do)
+    res = (do_b, m_r, l_r, delta)           # the kernels' inputs
+    res_p = (do_b.float(), m_r, l_r, delta)  # dO as they read it
     dq_r = ref.flash_bwd_dq(q, k, v, *res_p, **geo)
     dk_r, dv_r = ref.flash_bwd_dkv(q, k, v, *res_p, **geo)
     want = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
@@ -587,15 +637,27 @@ def flash_hold(tag: str, q, k, v, do, cases, window=None) -> tuple:
     bad = flash_fault_model(q, k, v, *res_p, keep | diag)
     dev = {n: tol_ratio(bad[n], want[n], tol[n]) for n in want}
     print(f"{tag} fault model, an edge tile read unmasked (the diagonal "
-          f"blocks' mask dropped): max deviation / limit "
+          f"blocks' mask dropped; o: the forward's, dq, dk, dv: the "
+          f"backward's full tiles read across the diagonal): max "
+          f"deviation / limit "
           + ", ".join(f"{n} {dev[n]:.2f}" for n in want), flush=True)
-    if not dev["o"] > 1:
+    if not all(dev[n] > 1 for n in want):
         raise SystemExit(f"{tag} limits would not catch an edge tile read "
                          f"unmasked")
-    del bad, keep, diag
+    # one q head's partial dropped from the cluster sum (q head 1, rank 1
+    # of kv head 0's cluster)
+    lost = flash_fault_model(q, k, v, *res_p, keep, drop_head=1)
+    dev = {n: tol_ratio(lost[n], want[n], tol[n]) for n in ("dk", "dv")}
+    print(f"{tag} fault model, q head 1's partial dropped from the cluster "
+          f"sum: max deviation / limit "
+          + ", ".join(f"{n} {dev[n]:.2f}" for n in dev), flush=True)
+    if not all(x > 1 for x in dev.values()):
+        raise SystemExit(f"{tag} limits would not catch a q head's partial "
+                         f"dropped from the cluster sum")
+    del bad, lost, keep, diag
 
-    worst = {"flash_forward": 0.0, "flash_bwd_dq": 0.0,
-             "flash_bwd_dkv": 0.0}
+    worst = {"flash_forward": 0.0, "flash_bwd_prep": err_prep,
+             "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for label, blk in cases:
         kw = dict(bq=blk, bkv=blk, window=window)
         o, m, l = fa_mod.flash_forward(q, k, v, label, residuals=True, **kw)
@@ -603,15 +665,20 @@ def flash_hold(tag: str, q, k, v, do, cases, window=None) -> tuple:
         o_nr = fa_mod.flash_forward(q, k, v, label, **kw)
         dq = fa_mod.flash_bwd_dq(q, k, v, *res, label, **kw)
         dk, dv = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **kw)
+        dq2 = fa_mod.flash_bwd_dq(q, k, v, *res, label, **kw)
+        dk2, dv2 = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **kw)
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip((o, m, l), again))
+        same_b = all(torch.equal(x, y) for x, y in
+                     zip((dq, dk, dv), (dq2, dk2, dv2)))
         print(f"{tag} {label:4s} (blocks {blk}): forward launched twice, "
               f"o, m, l bit-equal: {same}; o without residuals bit-equal "
-              f"to o: {torch.equal(o, o_nr)}", flush=True)
-        if not same:
-            raise SystemExit(f"{tag} forward under {label} gave other bits "
+              f"to o: {torch.equal(o, o_nr)}; dQ and dK/dV launched twice, "
+              f"dq, dk, dv bit-equal: {same_b}", flush=True)
+        if not (same and same_b):
+            raise SystemExit(f"{tag} kernels under {label} gave other bits "
                              f"on a second launch")
-        del again
+        del again, dq2, dk2, dv2
         got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
         ratio = {n: tol_ratio(got[n], want[n], tol[n]) for n in want}
         ratio["o (no residuals)"] = tol_ratio(o_nr, o_r, tol["o"])
@@ -637,11 +704,15 @@ def flash_hold(tag: str, q, k, v, do, cases, window=None) -> tuple:
     return worst, res
 
 
-def flash_time(tag: str, q, k, v, res, blk: int, window=None) -> dict:
-    """Time the three kernels (base), their plain versions and SDPA at
-    one shape -> {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}.
+def flash_time(tag: str, q, k, v, res, blk: int, window=None,
+               o=None, g=None) -> dict:
+    """Time the kernels (base), their plain versions and SDPA at one shape
+    -> {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}; the prep
+    pass too when the forward's o and the f32 cotangent g are given.
     Bound: each input read once, each output written once; the work of
-    the live (q, kv) pairs of the causal (window) mask."""
+    the live (q, kv) pairs of the causal (window) mask.  dQ and dK/dV
+    read prep's bf16 dO; the backward's f32 cotangent is read once, in
+    prep's bound, which also writes the bf16 copy."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     geo = dict(bq=blk, bkv=blk, window=window)
@@ -649,15 +720,21 @@ def flash_time(tag: str, q, k, v, res, blk: int, window=None) -> dict:
     pairs = b * h * int(keep.sum().item())
     qb, kvb = b * h * s * d * 2, 2 * b * hkv * s * d * 2   # bf16 q; k + v
     f32_q, stat = b * h * s * d * 4, b * h * s * 4
+    dob = qb                                               # bf16 dO
     work = {"flash_forward": (qb + kvb + f32_q + 2 * stat, 4 * d * pairs),
-            "flash_bwd_dq": (qb + kvb + f32_q + 3 * stat + f32_q,
+            "flash_bwd_dq": (qb + kvb + dob + 3 * stat + f32_q,
                              6 * d * pairs),
-            "flash_bwd_dkv": (qb + kvb + f32_q + 3 * stat
-                              + 2 * b * hkv * s * d * 4, 8 * d * pairs)}
+            "flash_bwd_dkv": (qb + kvb + dob + 3 * stat
+                              + 2 * b * hkv * s * d * 4, 8 * d * pairs),
+            # o and g read, dO (bf16) and delta written; 2 D flops a row
+            "flash_bwd_prep": (2 * f32_q + qb + stat, 2 * b * h * s * d)}
     calls = {
         "flash_forward": (
             lambda: fa_mod.flash_forward(q, k, v, residuals=True, **geo),
             lambda: ref.flash_forward(q, k, v, residuals=True, **geo)),
+        "flash_bwd_prep": (
+            lambda: fa_mod.flash_bwd_prep(o, g),
+            lambda: ref.flash_bwd_prep(o, g)),
         "flash_bwd_dq": (
             lambda: fa_mod.flash_bwd_dq(q, k, v, *res, **geo),
             lambda: ref.flash_bwd_dq(q, k, v, *res, **geo)),
@@ -674,11 +751,14 @@ def flash_time(tag: str, q, k, v, res, blk: int, window=None) -> dict:
     lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), g_s,
                                                   retain_graph=True))
     library = {"flash_forward": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
+               "flash_bwd_dkv": lib_bwd, "flash_bwd_prep": None}
+    if o is None:
+        del calls["flash_bwd_prep"]
     out = {}
     for name, (kernel, plain) in calls.items():
         io_bytes, flops = work[name]
-        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        peak = FP32_FLOPS if name == "flash_bwd_prep" else BF16_FLOPS
+        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / peak
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5)
@@ -687,46 +767,108 @@ def flash_time(tag: str, q, k, v, res, blk: int, window=None) -> dict:
             fwd = (f" | no residuals "
                    f"{time_ms(lambda: fa_mod.flash_forward(q, k, v, **geo)):.4f}"
                    f" ms | build: {flash_build_line(d, blk)}")
+        elif name != "flash_bwd_prep":
+            fwd = (" (backward: dQ, dK, dV together) | build: "
+                   + flash_bwd_build_line(name, d, blk, blk))
+        lib = ("none (no one call)" if library[name] is None
+               else f"sdpa {library[name]:.4f} ms")
         print(f"{tag} {name} timing (base, B={b} H={h} Hkv={hkv} S={s} "
               f"D={d} window={window}): kernel {ms:.4f} ms | bound "
               f"{bound_ms:.4f} ms ({bound_by}) | plain {plain_ms:.4f} ms | "
-              f"sdpa {library[name]:.4f} ms"
-              + (" (backward: dQ, dK, dV together)"
-                 if name != "flash_forward" else fwd), flush=True)
+              f"{lib}{fwd}", flush=True)
         out[name] = (ms, plain_ms, bound_ms, bound_by, library[name])
+    if o is not None:
+        pair = sum(out[n][0] for n in ("flash_bwd_prep", "flash_bwd_dq",
+                                       "flash_bwd_dkv"))
+        bound = sum(out[n][2] for n in ("flash_bwd_prep", "flash_bwd_dq",
+                                        "flash_bwd_dkv"))
+        print(f"{tag} backward (prep + dQ + dK/dV) {pair:.4f} ms, bound "
+              f"{bound:.4f} ms | sdpa backward {lib_bwd:.4f} ms "
+              f"({pair / lib_bwd:.2f}x)", flush=True)
     return out
 
 
-def flash_label_times(tag: str, q, k, v, labels, window=None) -> None:
+def flash_bwd_build_line(name: str, d: int, bq: int, bkv: int,
+                         degree: int = 1) -> str:
+    """The registers / spills of the dQ or dK/dV instance a geometry runs
+    (`flash_dq_ws<D, NWG>`, `flash_dkv_ws<D, NWG, QT>`)."""
+    if name == "flash_bwd_dq":
+        nwg = 2 if degree * bq >= 128 else 1
+        return build_line("flash_attention", f"flash_dq_wsILi{d}ELi{nwg}E")
+    nwg = 1 if d >= 256 or degree * bkv < 128 else 2
+    return build_line("flash_attention", f"flash_dkv_wsILi{d}ELi{nwg}ELi"
+                      f"{fa_mod.dkv_q_tile(bq)}E")
+
+
+def bwd_spills() -> None:
+    """Every dQ and dK/dV instance: its ptxas line when this process built
+    the library, and its local memory and registers as the loaded module
+    reports them; local memory (a spill or a stack frame) fails the run,
+    whether or not the build was cached."""
+    for ln in _build.REPORTS.get("flash_attention", []):
+        if "flash_dq_ws" in ln or "flash_dkv_ws" in ln:
+            print(f"flash backward build:{ln}", flush=True)
+    insts = fa_mod.bwd_instances()
+    for name, local, regs in insts:
+        print(f"flash backward instance {name}: {regs} registers, {local} "
+              f"bytes local memory", flush=True)
+    spilled = [name for name, local, _ in insts if local]
+    if not insts or spilled:
+        raise SystemExit(f"flash backward kernels: {len(insts)} instances, "
+                         f"local memory in {spilled}")
+
+
+def flash_label_times(tag: str, q, k, v, labels, window=None,
+                      res=None) -> None:
     """The forward under coarsened labels ((label, block rows) pairs),
-    with and without residuals, beside its instance's registers."""
+    with and without residuals, beside its instance's registers; dQ and
+    dK/dV too when their inputs ``res`` are given."""
     d = q.shape[3]
     for label, blk in labels:
         geo = dict(bq=blk, bkv=blk, window=window)
         t = time_ms(lambda: fa_mod.flash_forward(q, k, v, label,
                                                  residuals=True, **geo))
         t_nr = time_ms(lambda: fa_mod.flash_forward(q, k, v, label, **geo))
-        rows = resolve(label).degree * blk
+        deg = resolve(label).degree
+        bwd = ""
+        if res is not None:
+            t_dq = time_ms(lambda: fa_mod.flash_bwd_dq(q, k, v, *res, label,
+                                                       **geo))
+            t_dkv = time_ms(lambda: fa_mod.flash_bwd_dkv(q, k, v, *res,
+                                                         label, **geo))
+            bwd = (f" | dQ {t_dq:.4f} ms, build: "
+                   f"{flash_bwd_build_line('flash_bwd_dq', d, blk, blk, deg)}"
+                   f" | dK/dV {t_dkv:.4f} ms, build: "
+                   f"{flash_bwd_build_line('flash_bwd_dkv', d, blk, blk, deg)}")
         print(f"{tag} flash_forward {label} (blocks {blk}) timing: "
               f"{t:.4f} ms | no residuals {t_nr:.4f} ms | build: "
-              f"{flash_build_line(d, rows)}", flush=True)
+              f"{flash_build_line(d, deg * blk)}{bwd}", flush=True)
 
 
 def flash_phase(gen: torch.Generator) -> list:
+    bwd_spills()
     q, k, v, do = flash_inputs(gen, FLASH)
     blk = FLASH["bq"]
-    worst, res = flash_hold("flash", q, k, v, do,
-                            [(label, blk) for label in FLASH_LABELS])
-    times = flash_time("flash", q, k, v, res, blk)
-    replaces = {"flash_forward": 196, "flash_bwd_dq": 291,
-                "flash_bwd_dkv": 421}
+    cases = [(label, blk) for label in FLASH_LABELS]
+    worst, res = flash_hold("flash", q, k, v, do, cases)
+    # the same labels under a sliding window (edges off the block grid)
+    w_worst, _ = flash_hold(f"flash window={FLASH_WINDOW}", q, k, v, do,
+                            cases, FLASH_WINDOW)
+    worst = {n: max(x, w_worst[n]) for n, x in worst.items()}
+    o = ref.flash_forward(q, k, v, bq=blk, bkv=blk)
+    times = flash_time("flash", q, k, v, res, blk, o=o, g=do)
+    del o
+    # the prep pass computes the reference's line outside its kernels
+    replaces = {"flash_forward": "kernels/flash_attention.py:196",
+                "flash_bwd_prep": "kernels/ops.py:235",
+                "flash_bwd_dq": "kernels/flash_attention.py:291",
+                "flash_bwd_dkv": "kernels/flash_attention.py:421"}
     out = []
     for name, (ms, plain_ms, bound_ms, bound_by, lib_ms) in times.items():
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/"
                               "flash_attention.cu",
-                    "replaces": "src/repro/kernels/flash_attention.py:"
-                                f"{replaces[name]}",
+                    "replaces": f"src/repro/{replaces[name]}",
                     "max_abs_err": worst[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms})
@@ -740,11 +882,15 @@ def flash_phase(gen: torch.Generator) -> list:
              time_ms(lambda: fa_mod.flash_bwd_dkv(q, k, v, *res, label,
                                                   **geo)),
              time_ms(lambda: fa_mod.flash_forward(q, k, v, label, **geo))]
+        deg = resolve(label).degree
         print(f"flash {label} timing: forward {t[0]:.4f} ms | dQ "
               f"{t[1]:.4f} ms | dK/dV {t[2]:.4f} ms (base: "
-              + " | ".join(f"{o['ms']:.4f}" for o in out)
+              + " | ".join(f"{o['name']} {o['ms']:.4f}" for o in out)
               + f"); forward without residuals {t[3]:.4f} ms | build: "
-              f"{flash_build_line(q.shape[3], resolve(label).degree * blk)}",
+              f"{flash_build_line(q.shape[3], deg * blk)} | dQ "
+              f"{flash_bwd_build_line('flash_bwd_dq', q.shape[3], blk, blk, deg)}"
+              f" | dK/dV "
+              f"{flash_bwd_build_line('flash_bwd_dkv', q.shape[3], blk, blk, deg)}",
               flush=True)
     return out
 
@@ -773,9 +919,12 @@ def flash256_phase(gen: torch.Generator) -> dict:
     for window in (None, SPARSE["window"]):
         tag = f"flash D=256 window={window}"
         _, res = flash_hold(tag, q, k, v, do, FLASH256_CASES, window)
-        out[window] = flash_time(tag, q, k, v, res, SPARSE["bq"], window)
-        flash_label_times(tag, q, k, v, FLASH256_CASES[1:], window)
-        del res
+        o = ref.flash_forward(q, k, v, bq=SPARSE["bq"], bkv=SPARSE["bkv"],
+                              window=window)
+        out[window] = flash_time(tag, q, k, v, res, SPARSE["bq"], window,
+                                 o=o, g=do)
+        flash_label_times(tag, q, k, v, FLASH256_CASES[1:], window, res)
+        del res, o
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -831,6 +980,73 @@ def flash_geometry_phase(gen: torch.Generator) -> None:
             raise SystemExit(f"flash forward D={d} {label} bq={bq} "
                              f"bkv={bkv} window={window} Sk={sk} disagrees "
                              f"with its plain version")
+
+
+# backward geometries off the two train shapes -> (B, H, Hkv, Sq, Sk, D,
+# label, bq, bkv, causal, window): every program height and q tile (bq 32
+# takes 32-row tiles), gapped 16-row kv blocks (dK/dV only: the q axis
+# needs bkv % 64), GQA groups of 1, 4, 10 (one cluster of 10) and 32 (two
+# clusters of 16, summed by the wrapper), windows, non-causal cross
+# attention; each pass the kernels take is held
+FLASH_BWD_GEOMETRIES = (
+    (2, 4, 2, 1024, 1024, 64, "base", 64, 64, True, None),
+    (2, 8, 2, 1024, 1024, 64, "gap4", 64, 64, True, 200),
+    (2, 4, 2, 1024, 1024, 128, "gap4", 32, 16, True, None),
+    (2, 4, 2, 1024, 1024, 128, "con4", 64, 16, True, 200),
+    (2, 4, 2, 1024, 1024, 128, "gap2", 32, 64, True, 200),
+    (2, 4, 4, 1024, 2048, 128, "con2", 128, 128, False, None),
+    (1, 10, 1, 1024, 1024, 128, "base", 64, 64, True, None),
+    (1, 32, 1, 512, 512, 128, "con2", 64, 64, True, None),
+    (2, 4, 1, 1024, 1024, 256, "gap2", 32, 64, True, None),
+    (2, 4, 2, 1024, 2048, 256, "con2", 64, 64, False, None),
+)
+
+
+def flash_bwd_geometry_phase(gen: torch.Generator) -> None:
+    """dQ and dK/dV at FLASH_BWD_GEOMETRIES: each row within the flash
+    limits of its plain version, two launches bit-equal; the card's room
+    for the dK/dV cluster printed (and required)."""
+    for b, h, hkv, sq, sk, d, label, bq, bkv, causal, window in \
+            FLASH_BWD_GEOMETRIES:
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").bfloat16()
+        g = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        kw = dict(bq=bq, bkv=bkv, causal=causal, window=window)
+        o_r, m_r, l_r = ref.flash_forward(q, k, v, residuals=True, **kw)
+        do_b, delta = fa_mod.flash_bwd_prep(o_r, g)
+        res, res_p = (do_b, m_r, l_r, delta), (do_b.float(), m_r, l_r, delta)
+        keep = ref._flash_mask(sq, sk, causal, window, q.device)
+        cond_dq, cond_dk = flash_cond(q, k, v, *res_p, keep)
+        deg = resolve(label).degree
+        r, same = {}, True
+        if fa_mod.takes(d, deg, bq, bkv, kv_axis=False):
+            dq_r = ref.flash_bwd_dq(q, k, v, *res_p, **kw)
+            dq = fa_mod.flash_bwd_dq(q, k, v, *res, label, **kw)
+            same &= torch.equal(dq, fa_mod.flash_bwd_dq(q, k, v, *res, label,
+                                                        **kw))
+            r["dq"] = tol_ratio(dq, dq_r, flash_tol(dq_r, cond_dq))
+        dk_r, dv_r = ref.flash_bwd_dkv(q, k, v, *res_p, **kw)
+        dk, dv = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **kw)
+        again = fa_mod.flash_bwd_dkv(q, k, v, *res, label, **kw)
+        torch.cuda.synchronize()
+        same &= all(torch.equal(x, y) for x, y in zip((dk, dv), again))
+        r["dk"] = tol_ratio(dk, dk_r, flash_tol(dk_r, cond_dk))
+        r["dv"] = tol_ratio(dv, dv_r, flash_tol(dv_r))
+        rows = deg * bkv
+        room = fa_mod.dkv_max_clusters(d, rows, bq, bkv, h, hkv)
+        print(f"flash backward B={b} H={h}/{hkv} Sq={sq} Sk={sk} D={d} "
+              f"{label} bq={bq} bkv={bkv} causal={causal} window={window}: "
+              f"max error / limit "
+              + ", ".join(f"{n} {x:.3f}" for n, x in r.items())
+              + f"; two launches bit-equal: {same}; dK/dV clusters of "
+              f"{fa_mod.dkv_cluster(h // hkv)}, {room} at once | dK/dV "
+              f"{flash_bwd_build_line('flash_bwd_dkv', d, bq, bkv, deg)}",
+              flush=True)
+        if not (all(x <= 1 for x in r.values()) and same and room > 0):
+            raise SystemExit(f"flash backward D={d} {label} bq={bq} "
+                             f"bkv={bkv} window={window} Sk={sk} H={h}/{hkv}"
+                             f" disagrees with its plain version")
 
 
 def sparse_phase(gen: torch.Generator, dense_ms: float) -> dict:
@@ -2362,6 +2578,7 @@ COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "moe_ffn": (moe_mod, "launches"),
             "quant_moe_ffn": (moe_mod, "q_launches"),
             "flash_forward": (fa_mod, "fwd_launches"),
+            "flash_bwd_prep": (fa_mod, "prep_launches"),
             "flash_bwd_dq": (fa_mod, "dq_launches"),
             "flash_bwd_dkv": (fa_mod, "dkv_launches"),
             "flash_sparse_fwd": (sp_mod, "launches"),
@@ -3234,8 +3451,8 @@ def tuned_train_phase() -> dict:
     want = SERVED["train plain"]
     got = {"step-0 loss": losses[0], "step-0 grad norm": norms[0]}
     gap = rel_gaps(got, {n: want[n] for n in got})
-    flash = {k: counts[k] for k in ("flash_forward", "flash_bwd_dq",
-                                    "flash_bwd_dkv")}
+    flash = {k: counts[k] for k in ("flash_forward", "flash_bwd_prep",
+                                    "flash_bwd_dq", "flash_bwd_dkv")}
     print(f"train [cuda, tune exhaustive]: losses {losses}, grad norms "
           f"{norms}, step seconds {[round(x, 4) for x in secs]}; kernel "
           f"launches {flash}; tuned - plain, relative: "
@@ -3340,8 +3557,8 @@ def train_phase() -> dict:
     losses, norms, secs = train_run(cfg, "cuda", steps=TRAIN_STEPS,
                                     ckpt_dir=None)
     all_counts = read_counts()
-    counts = {k: all_counts[k] for k in ("flash_forward", "flash_bwd_dq",
-                                         "flash_bwd_dkv")}
+    counts = {k: all_counts[k] for k in ("flash_forward", "flash_bwd_prep",
+                                         "flash_bwd_dq", "flash_bwd_dkv")}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train [cuda]: losses {losses}, grad norms {norms}, step "
           f"seconds {[round(x, 4) for x in secs]}, peak memory {peak:.2f} "
@@ -3437,10 +3654,12 @@ def gemma_train_phase() -> dict:
     want_counts = {
         "auto": {"flash_sparse_fwd": n_local * TRAIN_STEPS,
                  "flash_forward": (n_layers - n_local) * TRAIN_STEPS,
+                 "flash_bwd_prep": n_layers * TRAIN_STEPS,
                  "flash_bwd_dq": n_layers * TRAIN_STEPS,
                  "flash_bwd_dkv": n_layers * TRAIN_STEPS},
         "off": {"flash_sparse_fwd": 0,
                 "flash_forward": n_layers * TRAIN_STEPS,
+                "flash_bwd_prep": n_layers * TRAIN_STEPS,
                 "flash_bwd_dq": n_layers * TRAIN_STEPS,
                 "flash_bwd_dkv": n_layers * TRAIN_STEPS}}
     for sparse in ("auto", "off"):
@@ -3593,6 +3812,7 @@ def main(argv=None) -> None:
         kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
         d256 = flash256_phase(gen)
         flash_geometry_phase(gen)
+        flash_bwd_geometry_phase(gen)
         dense_ms = d256[SPARSE["window"]]["flash_forward"][0]
         kernels += [sparse_phase(gen, dense_ms), decode_int8_phase(gen),
                     moe_phase(gen), quant_moe_phase(gen),

@@ -51,7 +51,10 @@ SIGNATURES = {
     "flash_attention": {
         "flash_fwd_bf16": [_P] * 6 + [_I] * 12 + [_F, _P],
         "flash_dq_bf16": [_P] * 8 + [_I] * 12 + [_F, _P],
-        "flash_dkv_bf16": [_P] * 9 + [_I] * 12 + [_F, _P],
+        "flash_dkv_bf16": [_P] * 9 + [_I] * 12 + [_F, _I, _P],
+        "flash_dkv_clusters": [_I] * 7,
+        "flash_bwd_prep": [_P] * 4 + [_I] * 2 + [_P],
+        "flash_bwd_instance": [_I, _P, _I, _P, _P],
     },
     "sparse_attention": {
         "flash_sparse_fwd_bf16": [_P] * 7 + [_I] * 13 + [_F, _P],

@@ -1,6 +1,6 @@
-// Warp-level tensor-core tiles for the flash kernels on Hopper (sm_90a),
-// shared by the dense flash forward, dQ and dK/dV (`flash_attention.cu`)
-// and the block-sparse flash forward (`sparse_attention.cu`).
+// Warp-level tensor-core tiles of the block-sparse flash forward
+// (`sparse_attention.cu`) on Hopper (sm_90a); the dense flash kernels
+// (`flash_attention.cu`) run on wgmma with `hopper.cuh`'s helpers instead.
 //
 // Operands are staged in shared memory as rows of D bf16 with a padded
 // stride (LD = D + PAD, so the fragment loads of neighbouring rows fall in
@@ -85,25 +85,6 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
   }
 }
 
-// the same for f32 rows, rounded to bf16 on the way in
-template <int D, typename RowMap>
-__device__ __forceinline__ void stage_f32(bf16* dst, const float* src,
-                                          int rows, RowMap rowmap) {
-  constexpr int LD = D + PAD, VEC = D / 8;
-  for (int i = threadIdx.x; i < rows * VEC; i += blockDim.x) {
-    const int r = i / VEC, cv = (i % VEC) * 8;
-    const float* s = &src[(size_t)rowmap(r) * D + cv];
-    const float4 x = *reinterpret_cast<const float4*>(s);
-    const float4 y = *reinterpret_cast<const float4*>(s + 4);
-    uint4 u;
-    u.x = pack_bf16(x.x, x.y);
-    u.y = pack_bf16(x.z, x.w);
-    u.z = pack_bf16(y.x, y.y);
-    u.w = pack_bf16(y.z, y.w);
-    *reinterpret_cast<uint4*>(&dst[r * LD + cv]) = u;
-  }
-}
-
 // s[16 x N] = X[rows r0.., D] . Y[rows n.., D]^T for one warp; X and Y are
 // row-major in shared memory with stride LD
 template <int D, int N>
@@ -127,13 +108,11 @@ __device__ __forceinline__ void warp_xyt(float (&s)[N / 8][4], const bf16* x,
   }
 }
 
-// acc[16 x DO] += P[16 x K] . Y[K rows, DO columns] for one warp: P is the
-// warp's own C fragments of a [16 x K] product (p[K/8][4]), reused as A
-// fragments; Y is row-major in shared memory with the stride of D-wide
-// rows (LD), and ``y`` points at its first column, so DO < D takes a
-// column slice of the staged rows
-template <int D, int K, int DO = D>
-__device__ __forceinline__ void warp_py(float (&acc)[DO / 8][4],
+// acc[16 x D] += P[16 x K] . Y[K rows, D] for one warp: P is the warp's
+// own C fragments of a [16 x K] product (p[K/8][4]), reused as A
+// fragments; Y is row-major in shared memory with stride LD
+template <int D, int K>
+__device__ __forceinline__ void warp_py(float (&acc)[D / 8][4],
                                         const float (&p)[K / 8][4],
                                         const bf16* y) {
   constexpr int LD = D + PAD;
@@ -146,7 +125,7 @@ __device__ __forceinline__ void warp_py(float (&acc)[DO / 8][4],
     const uint32_t a3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
     const bf16* yb = y + (kk * 16 + 2 * t) * LD + g;
 #pragma unroll
-    for (int jd = 0; jd < DO / 8; ++jd)
+    for (int jd = 0; jd < D / 8; ++jd)
       mma_bf16(acc[jd], a0, a1, a2, a3, ld_pair_col(yb + jd * 8, LD),
                ld_pair_col(yb + jd * 8 + 8 * LD, LD));
   }

@@ -1,4 +1,4 @@
-"""Coarsened flash attention: the wrappers of the three CUDA kernels in
+"""Coarsened flash attention: the wrappers of the CUDA kernels in
 ``csrc/flash_attention.cu`` (they replace `repro/kernels/flash_attention.py`
 `make_kernel`, `make_bwd_dq_kernel` and `make_bwd_dkv_kernel`).
 
@@ -9,27 +9,31 @@
   program's rows; each consumer warpgroup of 64 rows multiplies it with
   wgmma and carries the online softmax in registers; o is float32, and
   (m, l) are written when residuals are asked for.
-* dQ — the forward's programs; p is recomputed from (m, l) and
-  ``dq = p (dO V^T - delta) K scale``.
-* dK/dV — one block per (batch, q-head, kv-program) of C kv-blocks of
-  ``bkv`` rows; it sweeps the q blocks and writes per-q-head partials,
-  which `flash_bwd_dkv` sums over each GQA group with one reduction (as
-  the Pallas ``run`` does outside its call).
+* prep — `flash_bwd_prep`: delta = sum(g * o) and the cotangent rounded to
+  bf16, in one pass, for both backward kernels.
+* dQ — the forward's programs and walk (with `dq_kv_tile` rows a tile); p
+  is recomputed from (m, l) and ``dq = p (dO V^T - delta) K scale``.
+* dK/dV — programs of C kv-blocks of ``bkv`` rows; K and V stay in shared
+  memory while the program's live q tiles (`dkv_walk`, `dkv_q_tile` rows
+  a tile) stream through; the q heads of one GQA group run as a
+  thread-block cluster that sums their partials on chip in rank order
+  (`dkv_clusters`), so dk, dv come out summed over each group.
 
 Bound on the H100: max(bytes / 3.35 TB/s, flops / 989 TFLOP/s) at the
 shapes of the call; the source's note says what the design does about it.
 
 On CPU tensors each wrapper computes its plain version (`ref.flash_*`); on
 CUDA tensors it launches the kernel or raises.  The kernels take bf16 q,
-k, v, head dims 64, 128 and 256, programs of 64, 128 or 256 rows (16 a
-warp; 64 or 128 at head dim 256, where 256 rows pass the shared memory
-and registers a block has), ``bkv`` a multiple of 64 on the q axis and
-``bq`` a multiple of 32 on the kv axis; anything else raises
-``ValueError``.  At head dim 256 the dK/dV pass runs two blocks a program,
-one per half of the head dim.
+k, v (and the backward's dO), head dims 64, 128 and 256, programs of 64,
+128 or 256 rows (64 or 128 at head dim 256), ``bkv`` a multiple of 64 on
+the q axis and ``bq`` a multiple of 32 on the kv axis; anything else
+raises ``ValueError``.  Programs taller than a block holds (256 rows, or
+128 kv rows at head dim 256 in the dK/dV pass) run as consecutive blocks
+of the same program, each loading the streamed tiles itself.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -40,12 +44,14 @@ from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (64, 128, 256)
-PROGRAM_ROWS = (64, 128, 256)       # C * block rows a thread block holds
+PROGRAM_ROWS = (64, 128, 256)       # C * block rows of a program
 
 # kernel launches since the last reset, one count per kernel
 fwd_launches = 0
+prep_launches = 0
 dq_launches = 0
 dkv_launches = 0
+MAX_CLUSTER = 16                    # blocks of a dK/dV cluster
 
 
 def _geometry(q, k, cfg: CoarseningConfig, bq, bkv, causal, window, *,
@@ -133,6 +139,88 @@ def fwd_walk(sq: int, sk: int, degree: int, gapped: bool, bq: int,
     return out
 
 
+def dq_kv_tile(d: int) -> int:
+    """kv rows of one stage of the dQ kernel's ring (`dq_kt` in the
+    source): 64, or 32 at head dim 256, where the dQ sum takes 128
+    registers a thread beside the S and dP tiles.  dQ walks `fwd_walk`
+    with tiles of this many rows."""
+    return 32 if d >= 256 else 64
+
+
+def dkv_q_tile(bq: int) -> int:
+    """q rows of one stage of the dK/dV kernel's ring (`dkv_qt` in the
+    source): 64 where the q blocks tile by 64, else 32."""
+    return 64 if bq % 64 == 0 else 32
+
+
+@dataclasses.dataclass(frozen=True)
+class DkvProgram:
+    """One kv program of the dK/dV kernel's walk."""
+    program: int             # kv program index along the sequence
+    position: int            # its launch position among a head's programs
+    cols: tuple              # its global kv rows, in local (shared) order
+    # the q tiles it loads, in order: (first q row, the tile's class for
+    # each group of 64 kv rows, "full" or "edge")
+    tiles: tuple
+
+
+def dkv_walk(sq: int, sk: int, degree: int, gapped: bool, bq: int,
+             bkv: int, qt: int, causal: bool,
+             window: int | None) -> list[DkvProgram]:
+    """The rule the dK/dV kernel follows (its source cites this), in plain
+    Python, one entry per kv program.
+
+    The live q blocks are those of the Pallas whole-block skip
+    (`repro/kernels/flash_attention.py:371-380`) on the program's extreme
+    kv rows, a contiguous range; each is loaded as ``bq // qt`` tiles of
+    ``qt`` rows.  A tile is "full" for a group of 64 kv rows (a consumer
+    warpgroup's, or at head dim 256 the two warpgroups' shared rows) when
+    every (q row, kv row) pair is allowed by the causal / window mask, so
+    no mask is applied, and "edge" otherwise.  Programs launch in order:
+    under causal masking the first have the most live q blocks."""
+    c_prog = degree * bkv
+    nprog, skg, nq = sk // c_prog, sk // degree, sq // bq
+    out = []
+    for ki in range(nprog):
+        cols = tuple((r // bkv) * skg + ki * bkv + r % bkv if gapped
+                     else ki * c_prog + r for r in range(c_prog))
+        qb_lo, qb_hi = 0, nq
+        if causal:
+            qb_lo = cols[0] // bq
+        if window is not None:
+            qb_hi = min(nq, (cols[-1] + window - 1) // bq + 1)
+        tiles = []
+        for q0 in range(qb_lo * bq, qb_hi * bq, qt):
+            kinds = []
+            for w in range(c_prog // 64):
+                w_lo, w_hi = cols[64 * w], cols[64 * w + 63]
+                whole = ((not causal or w_hi <= q0)
+                         and (window is None or w_lo > q0 + qt - 1 - window))
+                kinds.append("full" if whole else "edge")
+            tiles.append((q0, tuple(kinds)))
+        out.append(DkvProgram(ki, ki, cols, tuple(tiles)))
+    return out
+
+
+def dkv_cluster(group: int) -> int:
+    """Blocks of one dK/dV cluster for a GQA group of ``group`` q heads:
+    the whole group up to 16 blocks (the non-portable limit), else the
+    largest divisor of the group up to 16, and the wrapper sums the
+    group's ``group // cluster`` cluster sums."""
+    return max(c for c in range(1, min(group, MAX_CLUSTER) + 1)
+               if group % c == 0)
+
+
+def dkv_clusters(h: int, hkv: int) -> list[tuple[int, int, tuple]]:
+    """The dK/dV kernel's clusters for one batch row and kv program:
+    (kv head, the cluster's index in its group, its q heads in rank order,
+    the order of the sum)."""
+    group = h // hkv
+    cl = dkv_cluster(group)
+    return [(kvh, gi, tuple(kvh * group + gi * cl + r for r in range(cl)))
+            for kvh in range(hkv) for gi in range(group // cl)]
+
+
 def _launchable(tensors, cfg: CoarseningConfig, d, bq, bkv, *,
                 kv_axis: bool) -> torch.device:
     """What the CUDA kernels take; raises on anything else."""
@@ -140,14 +228,16 @@ def _launchable(tensors, cfg: CoarseningConfig, d, bq, bkv, *,
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("flash attention operands must share one CUDA "
                          "device")
-    if any(t.dtype != torch.bfloat16 for t in tensors[:3]):
-        raise TypeError(f"flash kernels take bf16 q, k, v, got "
-                        f"{[t.dtype for t in tensors[:3]]}")
-    if any(t.dtype != torch.float32 for t in tensors[3:]):
-        raise TypeError("flash backward kernels take float32 do, m, l, "
-                        "delta")
+    if any(t.dtype != torch.bfloat16 for t in tensors[:4]):
+        raise TypeError(f"flash kernels take bf16 q, k, v (and the "
+                        f"backward's do, from `flash_bwd_prep`), got "
+                        f"{[t.dtype for t in tensors[:4]]}")
+    if any(t.dtype != torch.float32 for t in tensors[4:]):
+        raise TypeError("flash backward kernels take float32 m, l, delta")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash kernels take contiguous operands")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash kernels take 16-byte aligned operands")
     q, k, v = tensors[:3]
     if v.shape != k.shape or (len(tensors) > 3 and (
             tensors[3].shape != q.shape
@@ -205,13 +295,37 @@ def flash_forward(q, k, v, cfg: CoarseningConfig | str = BASE, *,
     return (o, m, l) if residuals else o
 
 
+def flash_bwd_prep(o, g):
+    """The backward's preprocessing: o, g (B,H,Sq,D) float32 (the forward's
+    output and its cotangent) -> (do (B,H,Sq,D) bf16, g rounded as both
+    backward kernels read it; delta (B,H,Sq) float32 = sum(g * o), the
+    reference's line `repro/kernels/ops.py:235`), in one pass."""
+    global prep_launches
+    if o.shape != g.shape or o.dim() != 4:
+        raise ValueError(f"flash_bwd_prep shapes: o {tuple(o.shape)}, g "
+                         f"{tuple(g.shape)}")
+    if o.device.type == "cpu":
+        return ref.flash_bwd_prep(o, g)
+    _build.check_f32_cuda("flash_bwd_prep", (o, g))
+    b, h, sq, d = o.shape
+    do = torch.empty(o.shape, dtype=torch.bfloat16, device=o.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    rc = _build.library("flash_attention").flash_bwd_prep(
+        o.data_ptr(), g.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        b * h * sq, d, torch.cuda.current_stream(o.device).cuda_stream)
+    _build.check(rc, "flash_bwd_prep")
+    prep_launches += 1
+    return do, delta
+
+
 def flash_bwd_dq(q, k, v, do, m, l, delta,
                  cfg: CoarseningConfig | str = BASE, *, bq: int = 128,
                  bkv: int = 128, causal: bool = True,
                  window: int | None = None, scale: float | None = None):
-    """dQ from the forward residuals.  do: (B,H,Sq,D) float32; m, l,
-    delta: (B,H,Sq) float32 -> dq (B,H,Sq,D) float32.  ``cfg`` is the
-    forward's (the same q programs)."""
+    """dQ from the forward residuals.  do: (B,H,Sq,D), bf16 on the card
+    (`flash_bwd_prep`'s), float32 or bf16 on the CPU; m, l, delta:
+    (B,H,Sq) float32 -> dq (B,H,Sq,D) float32.  ``cfg`` is the forward's
+    (the same q programs)."""
     global dq_launches
     cfg = resolve(cfg)
     _geometry(q, k, cfg, bq, bkv, causal, window, kv_axis=False)
@@ -238,8 +352,11 @@ def flash_bwd_dkv(q, k, v, do, m, l, delta,
                   cfg: CoarseningConfig | str = BASE, *, bq: int = 128,
                   bkv: int = 128, causal: bool = True,
                   window: int | None = None, scale: float | None = None):
-    """dK/dV from the forward residuals, coarsened on the kv-block axis by
-    ``cfg`` -> (dk, dv) (B,Hkv,Sk,D) float32, summed over each GQA group."""
+    """dK/dV from the forward residuals (``do`` as for `flash_bwd_dq`),
+    coarsened on the kv-block axis by ``cfg`` -> (dk, dv) (B,Hkv,Sk,D)
+    float32, summed over each GQA group: on the card inside the kernel, by
+    clusters of `dkv_cluster` q heads (a group of more than 16 heads sums
+    its clusters' sums here)."""
     global dkv_launches
     cfg = resolve(cfg)
     _geometry(q, k, cfg, bq, bkv, causal, window, kv_axis=True)
@@ -254,15 +371,48 @@ def flash_bwd_dkv(q, k, v, do, m, l, delta,
                       kv_axis=True)
     b, h, _, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    dkh = torch.empty((b, h, sk, d), dtype=torch.float32, device=dev)
-    dvh = torch.empty_like(dkh)
+    cl = dkv_cluster(h // hkv)
+    ng = h // hkv // cl
+    dk = torch.empty((b, hkv, ng, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
     rc = _build.library("flash_attention").flash_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dkh.data_ptr(),
-        dvh.data_ptr(), *_args(q, k, cfg, bq, bkv, causal, window, scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *_args(q, k, cfg, bq, bkv, causal, window, scale),
+        cl, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "flash_dkv_bf16")
     dkv_launches += 1
-    # GQA: sum the per-q-head partials onto the shared kv heads
-    return (dkh.reshape(b, hkv, h // hkv, sk, d).sum(dim=2),
-            dvh.reshape(b, hkv, h // hkv, sk, d).sum(dim=2))
+    if ng == 1:
+        return dk.view(b, hkv, sk, d), dv.view(b, hkv, sk, d)
+    return dk.sum(dim=2), dv.sum(dim=2)
+
+
+def dkv_max_clusters(d: int, rows: int, bq: int, bkv: int, h: int,
+                     hkv: int) -> int:
+    """How many dK/dV clusters for that geometry the card holds at once
+    (`cudaOccupancyMaxActiveClusters`; 0: the launch would fail)."""
+    n = _build.library("flash_attention").flash_dkv_clusters(
+        d, rows, bq, bkv, h, hkv, dkv_cluster(h // hkv))
+    if n < 0:
+        raise ValueError(f"no dK/dV instance for D={d}, {rows} rows, bq={bq}, "
+                         f"bkv={bkv}, {h}/{hkv} heads")
+    return n
+
+
+def bwd_instances() -> list[tuple[str, int, int]]:
+    """(name, local bytes a thread, registers) of every dQ and dK/dV
+    instance, read from the loaded module (`cudaFuncGetAttributes`): the
+    local bytes are the spills and stack frame, whether or not this
+    process built the library."""
+    lib = _build.library("flash_attention")
+    name, local, regs = (ctypes.create_string_buffer(64), ctypes.c_int(),
+                         ctypes.c_int())
+    out = []
+    while True:
+        rc = lib.flash_bwd_instance(len(out), ctypes.addressof(name), 64,
+                                    ctypes.addressof(local),
+                                    ctypes.addressof(regs))
+        if rc == -1:
+            return out
+        _build.check(rc, "flash_bwd_instance")
+        out.append((name.value.decode(), local.value, regs.value))

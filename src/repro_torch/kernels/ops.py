@@ -325,12 +325,23 @@ def flash_attention_verify(q, k_pool, v_pool, block_table, pos0,
                                     k_scale=k_scale, v_scale=v_scale)
 
 
+def _bwd_inputs(o, g):
+    """The backward kernels' dO and delta = sum(g * o) (f32, the
+    reference's :235) from the cotangent, by one `flash_bwd_prep` pass.
+    The kernels read dO in bf16; the CPU plain paths keep the float32
+    cotangent, as the reference's kernels take it."""
+    g = g.float().contiguous()
+    do, delta = _flash.flash_bwd_prep(o, g)
+    return (do if g.is_cuda else g), delta
+
+
 class _FlashAttention(torch.autograd.Function):
     """`repro/kernels/ops.py:183-241` `_flash_vjp_fn`: the forward runs the
     residual kernel and saves (q, k, v, o, m, l); the backward takes the
-    float32 cotangent, delta = sum(g * o) in float32 (:235), then the dQ
-    kernel with the forward's ``cfg`` and the dK/dV kernel with
-    ``bwd_cfg``, and casts each gradient to its input's type (:238)."""
+    float32 cotangent through one prep pass (delta = sum(g * o) in float32,
+    :235, and dO in bf16, `_bwd_inputs`), then the dQ kernel with the
+    forward's ``cfg`` and the dK/dV kernel with ``bwd_cfg``, and casts each
+    gradient to its input's type (:238)."""
 
     @staticmethod
     def forward(ctx, q, k, v, cfg, bwd_cfg, kw):
@@ -342,10 +353,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, m, l = ctx.saved_tensors
-        g = g.float().contiguous()
-        delta = (g * o).sum(dim=-1)                    # (B,H,Sq) f32
-        dq = _flash.flash_bwd_dq(q, k, v, g, m, l, delta, ctx.cfg, **ctx.kw)
-        dk, dv = _flash.flash_bwd_dkv(q, k, v, g, m, l, delta, ctx.bwd_cfg,
+        do, delta = _bwd_inputs(o, g)
+        dq = _flash.flash_bwd_dq(q, k, v, do, m, l, delta, ctx.cfg, **ctx.kw)
+        dk, dv = _flash.flash_bwd_dkv(q, k, v, do, m, l, delta, ctx.bwd_cfg,
                                       **ctx.kw)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None)
@@ -399,8 +409,8 @@ class _FlashSparse(torch.autograd.Function):
         q, k, v, o, m, l = ctx.saved_tensors
         kw = dict(ctx.kw)
         gs = kw.pop("global_stride")
-        g = g.float().contiguous()
         if gs:
+            g = g.float()
             with torch.enable_grad():
                 qkv = [t.detach().requires_grad_() for t in (q, k, v)]
                 o_ref = ref.sparse_attention(
@@ -408,9 +418,9 @@ class _FlashSparse(torch.autograd.Function):
                     global_stride=gs, scale=kw["scale"])
                 dq, dk, dv = torch.autograd.grad(o_ref, qkv, g)
         else:
-            delta = (g * o).sum(dim=-1)                # (B,H,Sq) f32
-            dq = _flash.flash_bwd_dq(q, k, v, g, m, l, delta, BASE, **kw)
-            dk, dv = _flash.flash_bwd_dkv(q, k, v, g, m, l, delta,
+            do, delta = _bwd_inputs(o, g)
+            dq = _flash.flash_bwd_dq(q, k, v, do, m, l, delta, BASE, **kw)
+            dk, dv = _flash.flash_bwd_dkv(q, k, v, do, m, l, delta,
                                           ctx.bwd_cfg, **kw)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None)

@@ -309,6 +309,14 @@ def _flash_bwd_p_ds(q, k, v, do, m, l, delta, causal, window, scale):
     return p, p * (dp - delta[..., None])
 
 
+def flash_bwd_prep(o, g):
+    """The backward's preprocessing pass (`flash_attention.flash_bwd_prep`):
+    the cotangent g rounded to bf16, as the backward kernels read it, and
+    delta = sum(g * o) in float32, the reference's line outside its Pallas
+    kernels (`repro/kernels/ops.py:235`) -> (do bf16, delta (B,H,Sq))."""
+    return g.to(torch.bfloat16), (g * o).sum(-1)
+
+
 def flash_bwd_dq(q, k, v, do, m, l, delta, *, degree=1, gapped=False,
                  bq=128, bkv=128, causal=True, window=None, scale=None):
     """The dQ kernel's function (:226 `make_bwd_dq_kernel`), f32:
