@@ -16,7 +16,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its path's full-width shapes, for every coarsening label listed, with
    the stated tolerance; then its time (CUDA events, L2 flushed before each
    launch, median), its plain version's time, one PyTorch library call's
-   time and the least time the card could take (``bound_ms``). The flash
+   time and the least time the card could take (``bound_ms``). The
+   coarsened matmul under every label it takes at qwen3-0.6b's FFN
+   products at T = 128, at M = 1024 and at K = 1056 (k % 64 == 32), each
+   case launched twice and bit-equal, with its K split and grid, beside a
+   dropped K slice and swapped gapped row blocks that must exceed its
+   limit; its instances' local memory (any fails the run); the three
+   products timed beside `torch.matmul` and `torch.mm` with float32 out,
+   each product with its split, a call's host microseconds, and every
+   label at M = 8192. The flash
    kernels (forward, the backward's prep pass, dQ, dK/dV) are held row by
    row (see FLASH_ULPS), causal and with a window of FLASH_WINDOW, and
    plain-version models of a lost kv block, a lost block of the causal
@@ -212,9 +220,9 @@ from repro_torch.bench.common import (BF16_FLOPS, FP32_FLOPS,  # noqa: E402
                                       HBM_BYTES_PER_S, smi_line, time_ms)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.coarsening import (BASE,  # noqa: E402
-                                         CoarseningConfig, plan_rows,
-                                         plan_stream, resolve, row_owners,
-                                         stream_owners)
+                                         KIND_GAPPED, CoarseningConfig,
+                                         plan_rows, plan_stream, resolve,
+                                         row_owners, stream_owners)
 from repro_torch.kernels import chunk_scan as scan_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -271,6 +279,15 @@ MM_MAIN = ((128, 1024, 3072), (128, 1024, 3072), (128, 3072, 1024))
 MM_CASES = [((128, 1024, 3072), "base"), ((128, 3072, 1024), "base"),
             ((1024, 1024, 3072), "con2"), ((1024, 1024, 3072), "gap2"),
             ((1024, 1024, 3072), "simd2")]
+# every label the kernel takes (degree and vector width in 1, 2, 4, their
+# product <= 4), held at those shapes and at a K with k % 64 == 32, whose
+# last stage reaches past K; then timed at the tuner's key M = 8192, both
+# orders of qwen3-0.6b's FFN
+MM_LABELS = ("base", "simd2", "simd4", "con2", "con2+simd2", "con4", "gap2",
+             "gap2+simd2", "gap4")
+MM_SHAPES = ((128, 1024, 3072), (128, 3072, 1024), (1024, 1024, 3072),
+             (128, 1056, 1024))
+MM_BIG = ((8192, 1024, 3072), (8192, 3072, 1024))
 
 
 def mm_tol(k: int, ref_max: float) -> float:
@@ -422,48 +439,150 @@ def decode_phase(gen: torch.Generator) -> dict:
 
 # -- phase 3: matmul ----------------------------------------------------------
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor):
+    """One PyTorch call of the kernel's own function, bf16 in and float32
+    out (``torch.mm(..., out_dtype=torch.float32)``, `aten::mm.dtype`); None
+    where this PyTorch lacks it."""
+    try:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return None
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds a call takes to enqueue (no synchronise inside)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def matmul_phase(gen: torch.Generator) -> dict:
+    """Row 2 (`matmul.py:69`): every label the kernel takes at qwen3-0.6b's
+    FFN products at T = 128, at M = 1024 and at k % 64 == 32, each launched
+    twice and bit-equal, beside two fault models (one K slice's partial
+    dropped, a gapped program's row blocks swapped) that must exceed the
+    limit; every instance's local memory read from the loaded module (any
+    fails the run); the three products of one prefill chunk timed, each
+    product with its K split, a call's host time, and every label at the
+    tuner's key M = 8192."""
     def operands(m, k, n):
         a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
         b = torch.randn(k, n, generator=gen, device="cuda").bfloat16() \
             / math.sqrt(k)
         return a, b.bfloat16()
 
+    sms = mm_mod.sm_count(torch.device("cuda"))
+    for name, local, regs in mm_mod.instances():
+        print(f"matmul instance {name}: {regs} registers, {local} bytes of "
+              f"local memory a thread")
+        if local:
+            raise SystemExit(f"matmul instance {name} spills ({local} bytes "
+                             f"of local memory)")
     worst = 0.0
-    for (m, k, n), label in MM_CASES:
+    cases = list(MM_CASES) + [
+        ((m, k, n), label) for m, k, n in MM_SHAPES for label in MM_LABELS
+        if mm_mod.tileable(m, n, k, resolve(label))
+        and ((m, k, n), label) not in MM_CASES]
+    for (m, k, n), label in cases:
+        cfg = resolve(label)
         a, b = operands(m, k, n)
         got = ops.matmul(a, b, label)
+        again = ops.matmul(a, b, label)
         torch.cuda.synchronize()
         want = ref.matmul(a, b)
         err = (got - want).abs().max().item()
         tol = mm_tol(k, want.abs().max().item())
+        same = torch.equal(got, again)
+        plan = mm_mod.mm_split_plan(m, n, k, cfg, sms)
+        faults = []
+        if plan.splits > 1:
+            k0, k1 = plan.bounds(k)[0]
+            part = ref.matmul(a[:, k0:k1].contiguous(), b[k0:k1].contiguous())
+            faults.append(("slice 0's partial dropped",
+                           part.abs().max().item() / tol))
+        if cfg.kind == KIND_GAPPED and cfg.degree > 1:
+            seg, bad = m // cfg.degree, want.clone()
+            bad[:mm_mod.BM] = want[seg:seg + mm_mod.BM]
+            bad[seg:seg + mm_mod.BM] = want[:mm_mod.BM]
+            faults.append(("program 0's row blocks 0 and 1 swapped",
+                           (bad - want).abs().max().item() / tol))
         print(f"matmul ({m}x{k})@({k}x{n}) {label:5s}: max|kernel-plain| "
-              f"{err:.3e} (tol {tol:.3e})")
+              f"{err:.3e} (tol {tol:.3e}); S {plan.splits}, grid "
+              f"{plan.grid}; two launches bit-equal: {same}"
+              + "".join(f"; fault model ({what}) / limit {r:.1f}"
+                        for what, r in faults), flush=True)
         if not err <= tol:
             raise SystemExit(f"matmul kernel {label} disagrees with its "
                              f"plain version")
+        if not same:
+            raise SystemExit(f"matmul kernel {label} gave other bits on a "
+                             f"second launch")
+        for what, r in faults:
+            if not r > 1:
+                raise SystemExit(f"the matmul limit would not catch {what}")
         worst = max(worst, err)
 
     # timing: one FFN's three products in one prefill chunk (gate, up, down)
     ops_ = [operands(m, k, n) for m, k, n in MM_MAIN]
     flops = sum(2 * m * n * k for m, k, n in MM_MAIN)
     io_bytes = sum(2 * m * k + 2 * k * n + 4 * m * n for m, k, n in MM_MAIN)
-    bound_ms = max(io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    bound_ms, bound_by = bound(io_bytes, flops)
+    has_f32 = mm_f32(*ops_[0]) is not None
     ms = time_ms(lambda: [ops.matmul(a, b) for a, b in ops_])
     plain_ms = time_ms(lambda: [ref.matmul(a, b) for a, b in ops_])
     lib_ms = time_ms(lambda: [torch.matmul(a, b) for a, b in ops_])
+    f32_ms = (time_ms(lambda: [mm_f32(a, b) for a, b in ops_]) if has_f32
+              else None)
+    f32_text = (f"{f32_ms:.4f} ms" if has_f32 else
+                "not measured (this PyTorch has no aten::mm.dtype)")
     print(f"matmul timing (ffn gate+up+down at T=128, base): kernel "
-          f"{ms:.4f} ms | bound {bound_ms:.4f} ms | plain (f32) "
-          f"{plain_ms:.4f} ms | torch.matmul bf16 {lib_ms:.4f} ms",
-          flush=True)
+          f"{ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) | plain (f32) "
+          f"{plain_ms:.4f} ms | torch.matmul bf16 {lib_ms:.4f} ms | torch.mm "
+          f"f32 out {f32_text}", flush=True)
+    for (m, k, n), (a, b) in zip(MM_MAIN[1:], ops_[1:]):
+        plan = mm_mod.mm_split_plan(m, n, k, BASE, sms)
+        one, one_by = bound(2 * m * k + 2 * k * n + 4 * m * n, 2 * m * n * k)
+        f32 = (f"{time_ms(lambda: mm_f32(a, b)):.4f}" if has_f32 else "-")
+        print(f"matmul ({m}x{k})@({k}x{n}) base: kernel "
+              f"{time_ms(lambda: ops.matmul(a, b)):.4f} ms | bound {one:.4f} "
+              f"ms ({one_by}) | torch.matmul "
+              f"{time_ms(lambda: torch.matmul(a, b)):.4f} | torch.mm f32 out "
+              f"{f32} | S {plan.splits}, grid {plan.grid} = {plan.blocks} "
+              f"blocks on {sms} SMs | build: "
+              f"{build_line('matmul', 'cmm_kernelILi1ELi1E')}", flush=True)
+    a, b = ops_[0]
+    print(f"matmul host time of one call (128x1024)@(1024x3072): kernel "
+          f"{host_us(lambda: ops.matmul(a, b)):.1f} us | torch.matmul "
+          f"{host_us(lambda: torch.matmul(a, b)):.1f} us", flush=True)
+    # the tuner's key: every label, the fastest as a search would pick it
+    for m, k, n in MM_BIG:
+        a, b = operands(m, k, n)
+        one, one_by = bound(2 * m * k + 2 * k * n + 4 * m * n, 2 * m * n * k)
+        times = {label: time_ms(lambda: ops.matmul(a, b, label))
+                 for label in MM_LABELS
+                 if mm_mod.tileable(m, n, k, resolve(label))}
+        best = min(times, key=times.get)
+        f32 = (f"{time_ms(lambda: mm_f32(a, b)):.4f}" if has_f32 else "-")
+        print(f"matmul ({m}x{k})@({k}x{n}): base {times['base']:.4f} ms, "
+              f"fastest {best} {times[best]:.4f} ms | bound {one:.4f} ms "
+              f"({one_by}) | torch.matmul "
+              f"{time_ms(lambda: torch.matmul(a, b)):.4f} | torch.mm f32 out "
+              f"{f32} | every label: "
+              + ", ".join(f"{lb} {t:.4f}" for lb, t in times.items()),
+              flush=True)
+        del a, b
     return {"name": "coarsened_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/matmul.cu",
             "replaces": "src/repro/kernels/matmul.py:69",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if io_bytes / HBM_BYTES_PER_S
-            >= flops / BF16_FLOPS else "operations",
-            "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": f32_ms if has_f32 else lib_ms}
 
 
 # -- phase 3: flash attention (forward, dQ, dK/dV) ---------------------------
@@ -1466,19 +1585,25 @@ def quant_matmul_phase(gen) -> dict:
         io = sum(2 * m * k + qw.nbytes + 4 * m * n
                  for (m, k, n), (_, qw, _) in zip(QMM_MAIN, prods))
         bms, by = bound(io, sum(2 * m * n * k for m, k, n in QMM_MAIN))
+        has_f32 = mm_f32(prods[0][0], prods[0][2]) is not None
+        bf16_ms = time_ms(lambda: [torch.matmul(a, wd)
+                                   for a, _, wd in prods])
+        f32_ms = (time_ms(lambda: [mm_f32(a, wd) for a, _, wd in prods])
+                  if has_f32 else None)
         t = {"ms": time_ms(lambda: [ops.quant_matmul(a, qw)
                                     for a, qw, _ in prods]),
              "plain_ms": time_ms(lambda: [ref.quant_matmul(a, qw)
                                           for a, qw, _ in prods]),
-             "library_ms": time_ms(lambda: [torch.matmul(a, wd)
-                                            for a, _, wd in prods]),
+             "library_ms": f32_ms if has_f32 else bf16_ms,
              "bound_ms": bms, "bound_by": by}
         timing[bits] = t
+        f32_text = (f"{f32_ms:.4f} ms" if has_f32 else
+                    "not measured (this PyTorch has no aten::mm.dtype)")
         print(f"quant_matmul int{bits} timing (shared-expert FFN gate+up+"
               f"down at T=128, base): kernel {t['ms']:.4f} ms | bound "
               f"{bms:.4f} ms ({by}) | plain {t['plain_ms']:.4f} ms | "
-              f"torch.matmul on the dequantized bf16 weight "
-              f"{t['library_ms']:.4f} ms", flush=True)
+              f"torch.matmul on the dequantized bf16 weight {bf16_ms:.4f} "
+              f"ms | torch.mm f32 out on it {f32_text}", flush=True)
         # each product alone: the shared expert's gate (= up) and down,
         # qwen3-0.6b's up and down
         for m, k, n in (*QMM_MAIN[1:], *QMM_QWEN3):

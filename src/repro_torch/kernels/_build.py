@@ -46,7 +46,8 @@ SIGNATURES = {
         "split_kv_attention": [_P] * 11 + [_I] * 14 + [_F, _P],
     },
     "matmul": {
-        "coarsened_matmul_bf16": [_P] * 3 + [_I] * 6 + [_P],
+        "coarsened_matmul_bf16": [_P] * 3 + [_I] * 7 + [_P],
+        "coarsened_matmul_instance": [_I, _P, _I, _P, _P],
     },
     "flash_attention": {
         "flash_fwd_bf16": [_P] * 6 + [_I] * 12 + [_F, _P],
@@ -174,6 +175,24 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def instances(name: str, entry: str) -> list[tuple[str, int, int]]:
+    """(name, local bytes a thread, registers) of every kernel instance
+    that the library's ``entry`` enumerates, read from the loaded module
+    (`cudaFuncGetAttributes`): the local bytes are the spills and stack
+    frame, whether or not this process built the library."""
+    fn = getattr(library(name), entry)
+    label, local, regs = (ctypes.create_string_buffer(64), ctypes.c_int(),
+                          ctypes.c_int())
+    out = []
+    while True:
+        rc = fn(len(out), ctypes.addressof(label), 64,
+                ctypes.addressof(local), ctypes.addressof(regs))
+        if rc == -1:
+            return out
+        check(rc, entry)
+        out.append((label.value.decode(), local.value, regs.value))
 
 
 def pointers(tensors) -> ctypes.Array:

@@ -33,7 +33,6 @@ of the same program, each loading the streamed tiles itself.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 
@@ -401,18 +400,5 @@ def dkv_max_clusters(d: int, rows: int, bq: int, bkv: int, h: int,
 
 def bwd_instances() -> list[tuple[str, int, int]]:
     """(name, local bytes a thread, registers) of every dQ and dK/dV
-    instance, read from the loaded module (`cudaFuncGetAttributes`): the
-    local bytes are the spills and stack frame, whether or not this
-    process built the library."""
-    lib = _build.library("flash_attention")
-    name, local, regs = (ctypes.create_string_buffer(64), ctypes.c_int(),
-                         ctypes.c_int())
-    out = []
-    while True:
-        rc = lib.flash_bwd_instance(len(out), ctypes.addressof(name), 64,
-                                    ctypes.addressof(local),
-                                    ctypes.addressof(regs))
-        if rc == -1:
-            return out
-        _build.check(rc, "flash_bwd_instance")
-        out.append((name.value.decode(), local.value, regs.value))
+    instance, read from the loaded module (`_build.instances`)."""
+    return _build.instances("flash_attention", "flash_bwd_instance")

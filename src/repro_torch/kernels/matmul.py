@@ -2,22 +2,27 @@
 ``csrc/matmul.cu`` (it replaces `repro/kernels/matmul.py` `make_kernel`)
 and ``csrc/quant_matmul.cu`` (the dequant-fused twin, `make_qkernel`).
 
-A thread block owns C row blocks of ``BM`` rows, adjacent (consecutive) or
-M/C rows apart (gapped), and ``BN * vector_width`` columns; the B tile of
-each contraction step is staged in shared memory once and shared by all C
-row blocks.  bf16 inputs, float32 accumulation and output, as the Pallas
-kernel.  Bound on the H100: max(2mnk / 989 TFLOP/s, bytes / 3.35 TB/s);
-see the source for what the design does about it.
+A thread block of the coarsened kernel owns C row blocks of ``BM`` rows,
+adjacent (consecutive) or M/C rows apart (gapped), and ``BN *
+vector_width`` columns.  It streams its K slice through a TMA ring of
+``MM_KSTEP``-row stages: a consecutive program's rows as one box a stage,
+a gapped program's as C boxes, and the weight tile once a stage for all C
+row blocks (`mm_program` states the walk).  The products run on `wgmma`,
+bf16 inputs, float32 accumulation and output, as the Pallas kernel.  K is
+split over the blocks of a cluster where the output tiles leave SMs idle
+(`mm_split_plan`).  Bound on the H100: max(2mnk / 989 TFLOP/s, bytes
+/ 3.35 TB/s); see the source for what the design does about it.
 
 `quant_matmul` takes a packed `QTensor` weight (int8 with per-column
 scales, or int4 nibbles with per-group scales), widens it to bf16 in
 registers and applies the scales after the exact products.  It keeps
 the reference's tile rule (``m % (degree*128)``, ``n % (128*vector_width)``,
 ``k % 256``, ``256 % group``) and takes degree <= 2, vector_width 1.  Its
-K is split over the blocks of a thread-block cluster so that the grid
-fills the card (`split_plan`); the slices' partial sums are added in
-slice order, so a call gives the same bits every time.
+K is split the same way (`split_plan`).
 Bound: max(2mnk / 989 TFLOP/s, (2mk + packed weight + 4mn) / 3.35 TB/s).
+
+Both kernels add the slices' partial sums in slice order, so a call gives
+the same bits every time.  `plan_split` is the one planner of both.
 
 On CPU tensors the wrappers compute the plain versions (`ref.matmul`,
 `ref.quant_matmul`); on CUDA tensors they launch the kernel or raise.
@@ -34,22 +39,28 @@ from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
 from repro_torch.kernels import _build, ref
 from repro_torch.quant.qtypes import QTensor
 
-BM, BN, BK = 64, 64, 32             # the kernel's row, column and depth tiles
+BM, BN, BK = 64, 64, 32             # row block, column box, the K rule
 MAX_TILE_PRODUCT = 4                # degree * vector_width, register budget
+MM_KSTEP = 64                       # K rows a stage of the ring (`KSTEP`)
+MM_BLOCKS_PER_SM = 1                # the split's aim (`mm_split_plan`)
 
 launches = 0                        # kernel launches since the last reset
 q_launches = 0                      # dequant-fused launches since the reset
+
+# the K split over a cluster's blocks, shared by both kernels
+PORTABLE_SPLITS = 8                 # a portable cluster's blocks
+MAX_SPLITS = 16                     # the most a cluster takes (non-portable)
+MIN_STEPS = 4                       # K steps a slice keeps where it can
 
 # the reference qkernel's blocks (`repro/kernels/matmul.py:87`)
 Q_BM, Q_BN, Q_BK = 128, 128, 256
 Q_MAX_DEGREE = 2                    # a warpgroup a row block, two at most
 # the dequant-fused kernel's own tiles (`csrc/quant_matmul.cu`)
 Q_WN, Q_KSTEP = 64, 64              # columns of a block, K rows of a stage
-Q_PORTABLE_SPLITS = 8               # a portable cluster's blocks
-Q_MAX_SPLITS = 16                   # the most a cluster takes (non-portable)
+Q_PORTABLE_SPLITS = PORTABLE_SPLITS
+Q_MAX_SPLITS = MAX_SPLITS
 Q_BLOCKS_PER_SM = 2.7               # the grid's aim at degree 1 (see
                                     # `split_plan`); half of it at degree 2
-Q_MIN_STEPS = 4                     # K steps a slice keeps where it can
 
 
 def tileable(m: int, n: int, k: int, cfg: CoarseningConfig) -> bool:
@@ -85,9 +96,10 @@ def quant_tileable(m: int, n: int, k: int, cfg: CoarseningConfig,
 
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
-    """How the dequant-fused kernel cuts an (m,k) @ (k,n) product: K into
+    """How a K-split kernel cuts an (m,k) @ (k,n) product: K into
     ``splits`` slices of whole ``unit``-row pieces (the blocks of one
-    cluster); the grid (splits, n/64, m/(degree*128))."""
+    cluster; the last piece may reach past K); the grid (splits, output
+    tile columns, output tile rows)."""
     splits: int
     unit: int
     grid: tuple
@@ -98,10 +110,31 @@ class SplitPlan:
 
     def bounds(self, k: int) -> list[tuple[int, int]]:
         """[k0, k1) of every slice, as the kernel computes them."""
-        units = k // self.unit
+        units = -(-k // self.unit)
         return [(i * units // self.splits * self.unit,
-                 (i + 1) * units // self.splits * self.unit)
+                 min((i + 1) * units // self.splits * self.unit, k))
                 for i in range(self.splits)]
+
+
+def plan_split(m: int, n: int, k: int, *, rows: int, cols: int, kstep: int,
+               unit: int, sms: int, aim: float,
+               fill: bool = True) -> SplitPlan:
+    """The K split of a product whose output tiles are ``rows`` x ``cols``,
+    walked in ``kstep``-row stages, on a card of ``sms`` SMs.  A slice is
+    whole ``unit``-row pieces.  The grid aims at ``aim`` blocks, in a
+    portable cluster of at most 8 slices of at least 4 K steps each (a
+    slice shorter than that is mostly the fill of its ring): clusters
+    leave some of an SM's places empty, and a block that finds none waits
+    for a whole block's time.  With ``fill``, where that leaves SMs idle,
+    up to 16 slices fill them."""
+    units = -(-k // unit)
+    deep = max(1, min(units, k // (MIN_STEPS * kstep)))
+    tiles = (n // cols) * (m // rows)
+    splits = min(int(aim) // tiles, PORTABLE_SPLITS, deep)
+    if fill and tiles * splits < sms:
+        splits = min(-(-sms // tiles), MAX_SPLITS, units)
+    splits = max(splits, 1)
+    return SplitPlan(splits, unit, (splits, n // cols, m // rows))
 
 
 def split_plan(m: int, n: int, k: int, cfg: CoarseningConfig | str,
@@ -109,24 +142,79 @@ def split_plan(m: int, n: int, k: int, cfg: CoarseningConfig | str,
     """The K split of a `quant_tileable` product on a card of ``sms`` SMs.
     A slice is whole K steps and, for int4, whole scale groups.  The grid
     aims at 2.7 blocks an SM at degree 1 (1.35 at degree 2, whose blocks
-    are twice the size), in a portable cluster of at most 8 slices of at
-    least 4 K steps each (a slice shorter than that is mostly the fill of
-    its ring): three blocks' rings and registers fit an SM, but clusters
-    leave some of those places empty, and a block that finds none waits
-    for a whole block's time.  Where that leaves SMs idle, up to 16
-    slices fill them."""
+    are twice the size): three blocks' rings and registers fit an SM."""
+    c = resolve(cfg).degree
+    return plan_split(m, n, k, rows=c * Q_BM, cols=Q_WN, kstep=Q_KSTEP,
+                      unit=max(Q_KSTEP, group) if bits == 4 else Q_KSTEP,
+                      sms=sms, aim=Q_BLOCKS_PER_SM * sms / c)
+
+
+def mm_split_plan(m: int, n: int, k: int, cfg: CoarseningConfig | str,
+                  sms: int) -> SplitPlan:
+    """The K split of a `tileable` product on a card of ``sms`` SMs: whole
+    ``MM_KSTEP``-row steps (the last may reach past K), the grid (splits,
+    n / (64 vector_width), m / (64 degree)), aiming at one block an SM
+    and never past it (`plan_split` with ``fill`` off): on the H100 a
+    split that puts a second block of the cluster grid on an SM costs more
+    than it streams (`repro_torch.bench.mm_splits`)."""
     cfg = resolve(cfg)
-    c = cfg.degree
-    unit = max(Q_KSTEP, group) if bits == 4 else Q_KSTEP
-    units = k // unit
-    deep = max(1, min(units, k // (Q_MIN_STEPS * Q_KSTEP)))
-    tiles = (n // Q_WN) * (m // (c * Q_BM))
-    splits = min(int(Q_BLOCKS_PER_SM * sms / c) // tiles,
-                 Q_PORTABLE_SPLITS, deep)
-    if tiles * splits < sms:
-        splits = min(-(-sms // tiles), Q_MAX_SPLITS, units)
-    splits = max(splits, 1)
-    return SplitPlan(splits, unit, (splits, n // Q_WN, m // (c * Q_BM)))
+    return _mm_plan(m, n, k, cfg.degree, cfg.vector_width, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def _mm_plan(m: int, n: int, k: int, c: int, vw: int, sms: int) -> SplitPlan:
+    return plan_split(m, n, k, rows=c * BM, cols=BN * vw, kstep=MM_KSTEP,
+                      unit=MM_KSTEP, sms=sms, aim=MM_BLOCKS_PER_SM * sms,
+                      fill=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """One TMA copy: columns [x, x + w) of rows [y, y + h) of its tensor
+    (of A (m, k), x runs along k; of the weight (k, n), along n)."""
+    x: int
+    y: int
+    w: int
+    h: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """What one block of the coarsened kernel does: the output rows it
+    owns, in its local order, its columns, and each stage's A boxes and
+    weight boxes."""
+    rows: tuple
+    cols: range
+    stages: tuple
+
+
+def mm_program(m: int, n: int, k: int, cfg: CoarseningConfig | str,
+               plan: SplitPlan, block: tuple) -> Program:
+    """The walk of the block at grid position ``block`` = (slice, column
+    tile, row program), as `csrc/matmul.cu` `cmm_kernel` issues it."""
+    cfg = resolve(cfg)
+    c, vw = cfg.degree, cfg.vector_width
+    gapped = c > 1 and cfg.kind == KIND_GAPPED
+    s, j, i = block
+    steps = -(-k // MM_KSTEP)
+    s0 = s * steps // plan.splits
+    s1 = (s + 1) * steps // plan.splits
+    n0 = j * BN * vw
+
+    def grow(b):
+        return b * (m // c) + i * BM if gapped else (i * c + b) * BM
+
+    stages = []
+    for step in range(s0, s1):
+        kk = step * MM_KSTEP
+        if gapped:
+            a = tuple(Box(kk, grow(b), MM_KSTEP, BM) for b in range(c))
+        else:
+            a = (Box(kk, grow(0), MM_KSTEP, c * BM),)
+        w = tuple(Box(n0 + v * BN, kk, BN, MM_KSTEP) for v in range(vw))
+        stages.append((a, w))
+    rows = tuple(grow(b) + r for b in range(c) for r in range(BM))
+    return Program(rows, range(n0, n0 + BN * vw), tuple(stages))
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,9 +223,17 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def instances() -> list[tuple[str, int, int]]:
+    """(name, local bytes a thread, registers) of every instance of the
+    coarsened kernel, read from the loaded module."""
+    return _build.instances("matmul", "coarsened_matmul_instance")
+
+
 def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
-                     cfg: CoarseningConfig | str = BASE) -> torch.Tensor:
-    """(m,k) @ (k,n) -> (m,n) float32 through the coarsened kernel."""
+                     cfg: CoarseningConfig | str = BASE,
+                     plan: SplitPlan | None = None) -> torch.Tensor:
+    """(m,k) @ (k,n) -> (m,n) float32 through the coarsened kernel.
+    ``plan`` overrides `mm_split_plan` (to measure other splits)."""
     global launches
     cfg = resolve(cfg)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -160,11 +256,12 @@ def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("matmul kernel takes contiguous operands")
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("matmul kernel needs 16-byte aligned operands")
+    if plan is None:
+        plan = mm_split_plan(m, n, k, cfg, sm_count(a.device))
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    lib = _build.library("matmul")
-    rc = lib.coarsened_matmul_bf16(
+    rc = _build.library("matmul").coarsened_matmul_bf16(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, cfg.degree,
-        cfg.vector_width, int(cfg.kind == KIND_GAPPED),
+        cfg.vector_width, int(cfg.kind == KIND_GAPPED), plan.splits,
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "coarsened_matmul_bf16")
     launches += 1

@@ -144,9 +144,20 @@ def _operands(m, k, n, seed=0):
     return a, b
 
 
-@pytest.mark.parametrize("label", ["base", "con2", "gap2", "simd2"])
-def test_matmul_matches_pallas_kernel(label):
-    m, k, n = 256, 512, 256
+# (label, (m, k, n)): every label both the Pallas kernel (blocks 128 x
+# 128*vector_width x 256) and the port's `tileable` take
+MATMUL_CASES = ([(label, (256, 512, 256))
+                 for label in ("base", "con2", "gap2", "simd2")]
+                + [(label, (512, 512, 512))
+                   for label in ("con4", "gap4", "simd4", "con2+simd2",
+                                 "gap2+simd2")])
+
+
+@pytest.mark.parametrize("label,shape", [pytest.param(label, shape, id=label)
+                                         for label, shape in MATMUL_CASES])
+def test_matmul_matches_pallas_kernel(label, shape):
+    m, k, n = shape
+    assert t_mm.tileable(m, n, k, t_mm.resolve(label))
     a, b = _operands(m, k, n)
     want = jops.matmul(jnp.asarray(a, jnp.bfloat16),
                        jnp.asarray(b, jnp.bfloat16), JCfg.parse(label))
