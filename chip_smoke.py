@@ -68,9 +68,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one slot at pos S + 6) and the short-q verify (bf16 and int8 pools, T 5,
    page 16) for every label, with and without a window, beside their fault
    models (a lost kv block or page, lost V scales, and for verify row t's
-   mask shifted by one). The paper's microbenchmark kernels at the paper's
-   sizes (64M-element f32 streams, an 8192^2 stencil, a 1024 x 2^20 DP
-   scan): the streaming kernel under every label and every divergence
+   mask shifted by one), each case launched twice with bit-equal outputs;
+   verify at T 5 bit-equal to five calls at T 1 (row t at pos0 + t), also
+   at G 7 (D 128) and at G 10 with one kv head (D 256); the rows kernel's
+   instances read from the loaded module (any local memory fails), and the
+   host time of a call beside SDPA's. The paper's microbenchmark kernels at
+   the paper's sizes (64M-element f32 streams, an 8192^2 stencil, a 1024 x
+   2^20 DP scan): the streaming kernel under every label and every divergence
    variant at AI 6, the gather (tables of 2^14 at locality 4096, and of
    2^24 fully random), the stencil and the DP scan (base, con2/4/8, gap2
    refused), each bit-equal to its plain version; the stream and stencil
@@ -1730,6 +1734,11 @@ def decode_int8_phase(gen) -> dict:
 # are held at DEC_ULPS like the paged decode.
 CONTIG = dict(b=8, h=16, hkv=8, d=128, s=1024, bkv=128)
 VER = dict(b=8, h=16, hkv=8, d=128, ps=16, npp=64, t=5)
+# the widened geometries of the rows kernel: yi-34b / qwen2-vl-7b verify at
+# --spec-k 4 (G 7, T*G 35) and recurrentgemma-2b's (G 10, one kv head,
+# D 256, T*G 50)
+VER_WIDE = (dict(b=4, h=56, hkv=8, d=128, ps=16, npp=64, t=5),
+            dict(b=4, h=10, hkv=1, d=256, ps=16, npp=64, t=5))
 
 
 def kv_operands(k, v, dead, quant: bool):
@@ -1785,6 +1794,8 @@ def contig_phase(gen: torch.Generator, quant: bool) -> dict:
                       bkv=bkv, window=window)
             got = ops.decode_attention(q, k, v, pos, label, bkv=bkv,
                                        window=window, **sc)
+            again = ops.decode_attention(q, k, v, pos, label, bkv=bkv,
+                                         window=window, **sc)
             torch.cuda.synchronize()
             want = ref.split_kv(q, k, v, pos, **kw, **sc)
             fault = ref.split_kv(q, kb, vb, pos, **kw, **bad)
@@ -1793,7 +1804,8 @@ def contig_phase(gen: torch.Generator, quant: bool) -> dict:
             ratio = (fault.float() - want.float()).abs().max().item() / tol
             line = (f"contiguous decode {tag} {label:5s} window={window}: "
                     f"max|kernel-plain| / limit {err / tol:.3f}; fault "
-                    f"model (a live kv block lost) / limit {ratio:.1f}")
+                    f"model (a live kv block lost) / limit {ratio:.1f}; "
+                    f"two launches bit-equal: {torch.equal(got, again)}")
             ok = err <= tol
             if window is None:             # the dense oracle, every row
                 oracle = ref.decode_attention(
@@ -1812,6 +1824,9 @@ def contig_phase(gen: torch.Generator, quant: bool) -> dict:
             if not ratio > 1:
                 raise SystemExit("the contiguous decode limit would not "
                                  "catch a lost kv block")
+            if not torch.equal(got, again):
+                raise SystemExit(f"contiguous decode kernel {tag} {label} "
+                                 f"gave other bits on a second launch")
             worst = max(worst, err)
 
     live = torch.clamp(pos.long() + 1, max=s)
@@ -1835,6 +1850,13 @@ def contig_phase(gen: torch.Generator, quant: bool) -> dict:
           f"D={d} S={s} bkv={bkv}, live rows {n_live}): kernel {ms:.4f} ms "
           f"| bound {bms:.4f} ms ({by}) | plain {plain_ms:.4f} ms | sdpa "
           f"{lib_ms:.4f} ms", flush=True)
+    call_us = host_us(lambda: ops.decode_attention(q, k, v, pos, bkv=bkv,
+                                                   **sc))
+    sdpa_us = host_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kx, vx, attn_mask=mask))
+    print(f"contiguous decode {tag} host time of one call: ops."
+          f"decode_attention {call_us:.1f} us | sdpa {sdpa_us:.1f} us",
+          flush=True)
     return {"name": "contig_decode_attention" + ("_int8" if quant else ""),
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1843,17 +1865,12 @@ def contig_phase(gen: torch.Generator, quant: bool) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
-def verify_phase(gen: torch.Generator, quant: bool) -> dict:
-    """Row 4 (`decode_attention.py:510`, bf16 or int8 pools): T = 5 rows a
-    slot at pos0 + t through a permuted block table; rows past pos0 + T
-    and unreferenced pages poisoned (row pos0 + T stays clean: it is what
-    a shifted mask would read).  Fault models: a live page of slot 0 lost
-    (bf16: its K and V rows read as 0; int8: its V scales), and row t's
-    mask shifted by one (row t sees position pos0 + t + 1), the fault that
-    would break the greedy accept rule."""
-    b, h, hkv, d, ps, npp, t = (VER[k] for k in ("b", "h", "hkv", "d", "ps",
-                                                  "npp", "t"))
-    tag = "int8" if quant else "bf16"
+def verify_operands(gen: torch.Generator, shape: dict, quant: bool):
+    """Pools, a permuted block table and T query rows a slot at pos0 + t;
+    rows past pos0 + T and unreferenced pages poisoned (row pos0 + T stays
+    clean: it is what a shifted mask would read)."""
+    b, h, hkv, d, ps, npp, t = (shape[k] for k in ("b", "h", "hkv", "d",
+                                                    "ps", "npp", "t"))
     n_pages = b * npp + 5
     q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * npp]
@@ -1867,15 +1884,37 @@ def verify_phase(gen: torch.Generator, quant: bool) -> dict:
         torch.randn(n_pages, ps, hkv, d, generator=gen, device="cuda"),
         torch.randn(n_pages, ps, hkv, d, generator=gen, device="cuda"), dead,
         quant)
-    pos0 = pos0.to(torch.int32)
-    pg0 = bt[0, (pos0[0].item() - 20) // ps].long()   # live in any window
-    if quant:
-        bad = dict(sc, v_scale=sc["v_scale"].clone())
-        bad["v_scale"][pg0] = 0.0
-        kb, vb = kp, vp
-    else:
-        bad, kb, vb = sc, kp.clone(), vp.clone()
-        kb[pg0], vb[pg0] = 0.0, 0.0
+    return q, kp, vp, bt, pos0.to(torch.int32), sc
+
+
+def verify_rows_split(q, kp, vp, bt, pos0, label, window, sc, got) -> bool:
+    """Whether verify at T rows equals T verify calls at T = 1, row t at
+    pos0 + t, bit for bit (the rows kernel's row-independent arithmetic)."""
+    one = [ops.flash_attention_verify(q[:, ti:ti + 1].contiguous(), kp, vp,
+                                      bt, pos0 + ti, label, window=window,
+                                      **sc)
+           for ti in range(q.shape[1])]
+    return torch.equal(got, torch.cat(one, dim=1))
+
+
+def verify_checks(tag, q, kp, vp, bt, pos0, sc, quant, faults=True):
+    """Every label with and without a window: within `dec_tol` of the plain
+    version and of the gather oracle, two launches bit-equal, T rows equal
+    to T calls of one row bit for bit; with ``faults``, a live page of slot
+    0 lost (bf16: its K and V rows read as 0; int8: its V scales) and row
+    t's mask shifted by one (row t sees pos0 + t + 1), the fault that would
+    break the greedy accept rule, must exceed the limit.  Returns the
+    largest error and the gathered (dequantized) K/V views."""
+    ps = kp.shape[1]
+    if faults:
+        pg0 = bt[0, (pos0[0].item() - 20) // ps].long()   # live in any window
+        if quant:
+            bad = dict(sc, v_scale=sc["v_scale"].clone())
+            bad["v_scale"][pg0] = 0.0
+            kb, vb = kp, vp
+        else:
+            bad, kb, vb = sc, kp.clone(), vp.clone()
+            kb[pg0], vb[pg0] = 0.0, 0.0
     kg = dequant(ref.gather_pages(kp, bt), None if not quant else
                  ref.gather_scales(sc["k_scale"], bt))
     vg = dequant(ref.gather_pages(vp, bt), None if not quant else
@@ -1888,28 +1927,76 @@ def verify_phase(gen: torch.Generator, quant: bool) -> dict:
                       window=window)
             got = ops.flash_attention_verify(q, kp, vp, bt, pos0, label,
                                              window=window, **sc)
+            again = ops.flash_attention_verify(q, kp, vp, bt, pos0, label,
+                                               window=window, **sc)
+            split = verify_rows_split(q, kp, vp, bt, pos0, label, window, sc,
+                                      got)
             torch.cuda.synchronize()
             want = ref.verify_split_kv(q, kp, vp, bt, pos0, **kw, **sc)
             oracle = ref.verify_attention(q, kg, vg, pos0, window=window)
-            lost = ref.verify_split_kv(q, kb, vb, bt, pos0, **kw, **bad)
-            shifted = ref.verify_split_kv(q, kp, vp, bt, pos0 + 1, **kw, **sc)
             tol, tol_o = dec_tol(want), dec_tol(oracle)
             err = (got.float() - want.float()).abs().max().item()
             err_o = (got.float() - oracle.float()).abs().max().item()
-            r_lost, r_shift = ((f.float() - want.float()).abs().max().item()
-                               / tol for f in (lost, shifted))
-            print(f"verify {tag} {label:5s} window={window}: max|kernel-"
-                  f"plain| / limit {err / tol:.3f}, max|kernel-gather "
-                  f"oracle| / limit {err_o / tol_o:.3f}; fault models / "
-                  f"limit: a live page lost {r_lost:.1f}, row t's mask "
-                  f"shifted by one {r_shift:.1f}", flush=True)
+            line = (f"verify {tag} {label:5s} window={window}: max|kernel-"
+                    f"plain| / limit {err / tol:.3f}, max|kernel-gather "
+                    f"oracle| / limit {err_o / tol_o:.3f}; two launches "
+                    f"bit-equal: {torch.equal(got, again)}; T rows == T "
+                    f"calls of one row: {split}")
+            if faults:
+                lost = ref.verify_split_kv(q, kb, vb, bt, pos0, **kw, **bad)
+                shifted = ref.verify_split_kv(q, kp, vp, bt, pos0 + 1, **kw,
+                                              **sc)
+                r_lost, r_shift = ((f.float() - want.float()).abs().max()
+                                   .item() / tol for f in (lost, shifted))
+                line += (f"; fault models / limit: a live page lost "
+                         f"{r_lost:.1f}, row t's mask shifted by one "
+                         f"{r_shift:.1f}")
+            print(line, flush=True)
             if not (err <= tol and err_o <= tol_o):
                 raise SystemExit(f"verify kernel {tag} {label} disagrees "
                                  f"with its plain version")
-            if not (r_lost > 1 and r_shift > 1):
+            if not torch.equal(got, again):
+                raise SystemExit(f"verify kernel {tag} {label} gave other "
+                                 f"bits on a second launch")
+            if not split:
+                raise SystemExit(f"verify kernel {tag} {label}: T rows "
+                                 f"differ from T calls of one row")
+            if faults and not (r_lost > 1 and r_shift > 1):
                 raise SystemExit("the verify limit would not catch a lost "
                                  "page or a shifted mask")
             worst = max(worst, err, err_o)
+    return worst, kg, vg
+
+
+def rows_spills() -> None:
+    """Every rows-kernel instance's registers and local memory, read from
+    the loaded module; any local memory fails the run."""
+    for name, local, regs in dec_mod.rows_instances():
+        print(f"rows kernel instance {name}: {regs} registers, {local} "
+              f"bytes of local memory a thread")
+        if local:
+            raise SystemExit(f"rows kernel instance {name} spills ({local} "
+                             f"bytes of local memory)")
+
+
+def verify_phase(gen: torch.Generator, quant: bool) -> dict:
+    """Row 4 (`decode_attention.py:510`, bf16 or int8 pools): T = 5 rows a
+    slot at pos0 + t through a permuted block table, `verify_checks` at
+    qwen3-0.6b's shape and at the widened geometries `VER_WIDE` (T*G 35 at
+    D 128, 50 at D 256), then timed beside SDPA with the host time of a
+    call."""
+    b, h, hkv, d, ps, npp, t = (VER[k] for k in ("b", "h", "hkv", "d", "ps",
+                                                  "npp", "t"))
+    tag = "int8" if quant else "bf16"
+    q, kp, vp, bt, pos0, sc = verify_operands(gen, VER, quant)
+    worst, kg, vg = verify_checks(tag, q, kp, vp, bt, pos0, sc, quant)
+    for shape in VER_WIDE:
+        wq, wk, wv, wbt, wp0, wsc = verify_operands(gen, shape, quant)
+        wtag = (f"{tag} G={shape['h'] // shape['hkv']} Hkv={shape['hkv']} "
+                f"D={shape['d']}")
+        worst = max(worst, verify_checks(wtag, wq, wk, wv, wbt, wp0, wsc,
+                                         quant, faults=False)[0])
+        del wq, wk, wv
 
     p0 = pos0.long()
     n_live = int((p0 + t).sum().item())               # rows 0..pos0+T-1
@@ -1930,12 +2017,17 @@ def verify_phase(gen: torch.Generator, quant: bool) -> dict:
             <= (p0[:, None] + torch.arange(t, device="cuda"))[:, :, None]
             )[:, None]
     qs = q.transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kx, vx, attn_mask=mask))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        qs, kx, vx, attn_mask=mask)
+    lib_ms = time_ms(sdpa)
     print(f"verify {tag} timing (base, B={b} T={t} H={h} Hkv={hkv} D={d} "
           f"ps={ps}, live rows {n_live}): kernel {ms:.4f} ms | bound "
           f"{bms:.4f} ms ({by}) | plain {plain_ms:.4f} ms | sdpa on "
           f"pre-gathered views {lib_ms:.4f} ms", flush=True)
+    call_us = host_us(lambda: ops.flash_attention_verify(q, kp, vp, bt, pos0,
+                                                         **sc))
+    print(f"verify {tag} host time of one call: ops.flash_attention_verify "
+          f"{call_us:.1f} us | sdpa {host_us(sdpa):.1f} us", flush=True)
     return {"name": "verify_attention" + ("_int8" if quant else ""),
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3938,6 +4030,7 @@ def main(argv=None) -> None:
         d256 = flash256_phase(gen)
         flash_geometry_phase(gen)
         flash_bwd_geometry_phase(gen)
+        rows_spills()
         dense_ms = d256[SPARSE["window"]]["flash_forward"][0]
         kernels += [sparse_phase(gen, dense_ms), decode_int8_phase(gen),
                     moe_phase(gen), quant_moe_phase(gen),

@@ -43,7 +43,8 @@ SIGNATURES = {
     "decode_attention": {
         "paged_decode_attention_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
         "paged_decode_attention_int8": [_P] * 11 + [_I] * 10 + [_F, _P],
-        "split_kv_attention": [_P] * 11 + [_I] * 14 + [_F, _P],
+        "split_kv_attention": [_P] * 10 + [_I] * 16 + [_F, _P],
+        "split_kv_instance": [_I, _P, _I, _P, _P],
     },
     "matmul": {
         "coarsened_matmul_bf16": [_P] * 3 + [_I] * 7 + [_P],

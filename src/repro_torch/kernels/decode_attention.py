@@ -3,8 +3,9 @@
 `repro/kernels/decode_attention.py` `make_paged_kernel`; `decode_attention`
 replaces `make_kernel` (a contiguous (B,S,Hkv,D) cache) and
 `verify_attention` replaces `make_verify_kernel` (T drafted query rows per
-slot through the block table).  Each runs the exact combine `_combine` as
-a second small kernel.
+slot through the block table).  The paged kernel runs the exact combine
+`_combine` as a second small kernel; the rows kernel runs it in the same
+launch.
 
 One thread block per (slot, kv head, split) owns C logical pages of the
 slot's block table, adjacent (consecutive) or npp/C apart (gapped), streams
@@ -18,10 +19,16 @@ branch of `make_paged_kernel`) launch the kernel's int8 variant: the
 scales are pulled out of the dot, so a split stages half the bytes.  Its
 bound: the live rows' int8 K/V bytes and their scales.
 
-The contiguous and verify kernels are one kernel (`rows_partials_kernel`)
-over T*G query rows a block, staging each kv block or page in tiles of up
-to 32 rows; their bounds are the live K/V bytes too (verify: the rows up
-to ``pos0 + T - 1``).
+The contiguous and verify kernels are one kernel (`rows_kernel`) over
+T*G <= 64 query rows a block: the splits of a (slot, kv head) on up to 16
+blocks, each walking its live splits through a ring of 2-4 stages of 16 or
+32 kv rows filled by cp.async, scores on the tensor cores, the online
+softmax in registers, P.V in float32, and the split combine in the same
+launch (the last block to finish merges the live splits' partials in split
+order; a dead split writes nothing; the longest slots run first).
+`rows_launch` sizes a launch and `rows_program` mirrors its walk in Python.
+Their bounds are the live K/V bytes too (verify: the rows up to
+``pos0 + T - 1``).
 
 On CPU tensors each wrapper computes its plain version
 (`ref.verify_split_kv`, with one row for paged decode, and `ref.split_kv`:
@@ -31,6 +38,7 @@ kernel or raises.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -40,8 +48,13 @@ from repro_torch.kernels import _build, ref
 
 MAX_GROUP = 8                      # query heads per kv head the kernel takes
 
-MAX_ROWS = 32                      # T*G query rows the rows kernel takes
-TILE_ROWS = 32                     # most kv rows the rows kernel stages
+MAX_ROWS = 64                      # T*G query rows the rows kernel takes
+MAX_ROWS_D = 256                   # head dims: multiples of 32 up to this
+MAX_STAGES = 4                     # ring stages of the rows kernel
+MAX_BLOCKS = 16                    # rows-kernel blocks a (slot, kv head)
+MERGE_SMEM = 48 * 1024             # shared memory a rows block at least
+ROWS_TAB = 1024                    # table entries a rows block reads early
+ROWS_SMEM = _build.MAX_SMEM - 128  # dynamic shared memory a rows block
 
 launches = 0                       # bf16-pool kernel launches since reset
 int8_launches = 0                  # int8-pool kernel launches since reset
@@ -61,14 +74,165 @@ def paged_takes(g: int, d: int, ps: int, elem: int) -> bool:
             and not (elem == 1 and ps > d) and smem <= _build.MAX_SMEM)
 
 
+def rows_tile(seg: int, rr: int) -> int:
+    """kv rows a stage of the rows kernel for ``rr`` query rows: 32 where
+    they tile the segment and ``rr <= 32``, else 16 (a tile's rows past
+    its segment are zero-filled)."""
+    return 32 if seg % 32 == 0 and rr <= 32 else 16
+
+
+def rows_mtiles(rr: int) -> int:
+    """m16 tiles the rows kernel pads ``rr`` query rows to (1, 2 or 4)."""
+    return 1 if rr <= 16 else 2 if rr <= 32 else 4
+
+
+def rows_smem(rr: int, d: int, tr: int, elem: int, nst: int) -> int:
+    """Shared memory of one rows-kernel block (`rows_smem_bytes`): the
+    padded query rows, ``nst`` stages of K, V (and int8 scales), each
+    warp's probability tile, and for int8 a stage's K and V widened to
+    bf16."""
+    mt, kvs = rows_mtiles(rr), d * elem + 16
+    return (mt * 16 * (2 * d + 16)
+            + nst * (2 * tr * kvs + (8 * tr if elem == 1 else 0))
+            + (d // 32) * mt * 16 * (tr + 4) * 4
+            + (2 * tr * (2 * d + 16) if elem == 1 else 0))
+
+
+def rows_stages(rr: int, d: int, seg: int, tiles: int, elem: int) -> int:
+    """Ring stages of a launch whose blocks walk at most ``tiles`` tiles:
+    as many, 2 to `MAX_STAGES`, fewer where shared memory runs out."""
+    tr = rows_tile(seg, rr)
+    nst = max(2, min(MAX_STAGES, tiles))
+    while nst > 2 and rows_smem(rr, d, tr, elem, nst) > ROWS_SMEM:
+        nst -= 1
+    return nst
+
+
+def rows_blocks(n_splits: int) -> int:
+    """Blocks a (slot, kv head) runs on: the largest divisor of
+    ``n_splits`` up to `MAX_BLOCKS`."""
+    return max(nb for nb in range(1, MAX_BLOCKS + 1) if n_splits % nb == 0)
+
+
+@dataclass(frozen=True)
+class RowsLaunch:
+    """How the rows kernel runs a geometry: ``tile_rows`` kv rows a ring
+    stage, ``stages`` stages, ``blocks`` blocks a (slot, kv head) of
+    ``per_block`` splits each (block q runs splits q, q + blocks, ...);
+    ``smem`` bytes of shared memory a block (`rows_launch_bytes`: at least
+    `MERGE_SMEM`, the merge's staging)."""
+    tile_rows: int
+    stages: int
+    blocks: int
+    per_block: int
+    smem: int
+
+
+def rows_launch(rr: int, d: int, seg: int, nseg: int, c: int,
+                elem: int) -> RowsLaunch:
+    """`RowsLaunch` of ``rr`` query rows at head dim ``d`` over ``nseg``
+    segments of ``seg`` rows in splits of ``c``."""
+    tr, n_splits = rows_tile(seg, rr), nseg // c
+    nb = rows_blocks(n_splits)
+    spb = n_splits // nb
+    nst = rows_stages(rr, d, seg, spb * c * -(-seg // tr), elem)
+    smem = (rows_smem(rr, d, tr, elem, nst)
+            + (max(ROWS_TAB, spb * c) + 2 * spb + 1) * 4)
+    return RowsLaunch(tr, nst, nb, spb, max(-(-smem // 16) * 16, MERGE_SMEM))
+
+
 def rows_takes(t: int, g: int, d: int, seg: int, elem: int) -> bool:
     """Whether the rows kernel (contiguous decode, T = 1; verify) takes
     ``t * g`` query rows a kv head, head dim ``d`` and kv segments of
     ``seg`` rows (a page or a kv block) of ``elem``-byte values."""
-    tr, rr = math.gcd(seg, TILE_ROWS), t * g
-    smem = 2 * tr * d * elem + 4 * (rr * d + rr * tr + 3 * rr + 2 * tr)
-    return (rr <= MAX_ROWS and d % 32 == 0 and d <= 1024
-            and smem <= _build.MAX_SMEM)
+    rr = t * g
+    return (1 <= rr <= MAX_ROWS and d % 32 == 0 and 32 <= d <= MAX_ROWS_D
+            and seg >= 1
+            and rows_smem(rr, d, rows_tile(seg, rr), elem, 2) <= ROWS_SMEM)
+
+
+@dataclass(frozen=True)
+class RowsTile:
+    """One stage of a block's walk: logical rows ``row0 .. row0 + rows - 1``
+    of segment ``seg`` (the tile's other rows are zero-filled), staged in
+    ring stage ``stage``."""
+    seg: int
+    row0: int
+    rows: int
+    stage: int
+
+
+@dataclass(frozen=True)
+class RowsSplit:
+    """Split ``si`` of a (slot, kv head) in the rows kernel's walk."""
+    si: int
+    live: bool
+    block: int                         # the block that runs it
+    segments: tuple[int, ...]          # the C segments the split owns
+    tiles: tuple[RowsTile, ...]        # staged, in walk (stage) order
+
+
+@dataclass(frozen=True)
+class RowsProgram:
+    """The rows kernel's walk for one (slot, kv head): ``splits`` in split
+    order, run by ``launch.blocks`` blocks, each walking its live splits'
+    tiles one after another through one ring; ``merge`` the live splits
+    whose partials the combine reads, in that order (one live split writes
+    the output itself)."""
+    launch: RowsLaunch
+    splits: tuple[RowsSplit, ...]
+    merge: tuple[int, ...]
+
+
+def rows_program(pos0: int, *, t: int, seg: int, nseg: int, c: int,
+                 gapped: bool, window: int | None, g: int = 1, d: int = 128,
+                 elem: int = 2) -> RowsProgram:
+    """The walk of `rows_kernel` (``csrc/decode_attention.cu``) for a slot
+    at ``pos0`` with T query rows at ``pos0 .. pos0 + T - 1``: which
+    segments each split owns (si*C + j consecutive, j*(nseg/C) + si
+    gapped), which are live, which block runs each, which tiles a live
+    split stages, in which ring stage, and which partials the merge
+    reads."""
+    ln = rows_launch(t * g, d, seg, nseg, c, elem)
+    n_splits, tr, nst, nb = nseg // c, ln.tile_rows, ln.stages, ln.blocks
+    win = window or 0
+    plast, tps = pos0 + t - 1, -(-seg // tr)
+
+    def live_of(si):
+        if gapped:
+            first = si * seg
+            last = ((c - 1) * n_splits + si) * seg + seg - 1
+        else:
+            first = si * c * seg
+            last = (si * c + c - 1) * seg + seg - 1
+        return first <= plast and (win <= 0 or last > pos0 - win)
+
+    walked = [0] * nb                  # tiles each block has staged
+    splits = []
+    for si in sorted(range(n_splits), key=lambda s: (s % nb, s)):
+        segs = tuple(j * n_splits + si if gapped else si * c + j
+                     for j in range(c))
+        tiles = []
+        if live_of(si):
+            for k in range(c * tps):
+                lseg, r0 = segs[k // tps], (k % tps) * tr
+                row0, rows = lseg * seg + r0, min(tr, seg - r0)
+                if row0 <= plast and (win <= 0
+                                      or row0 + rows - 1 > pos0 - win):
+                    tiles.append(RowsTile(lseg, row0, rows,
+                                          walked[si % nb] % nst))
+                    walked[si % nb] += 1
+        splits.append(RowsSplit(si, live_of(si), si % nb, segs,
+                                tuple(tiles)))
+    splits.sort(key=lambda sp: sp.si)
+    return RowsProgram(ln, tuple(splits),
+                       tuple(sp.si for sp in splits if sp.live))
+
+
+def rows_instances() -> list[tuple[str, int, int]]:
+    """(name, local bytes a thread, registers) of every instance of the
+    rows kernel, read from the loaded module."""
+    return _build.instances("decode_attention", "split_kv_instance")
 
 
 def _scales(k_scale, v_scale, shape):
@@ -169,10 +333,27 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     return out
 
 
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """The rows kernel's counters on ``dev`` for ``n`` (slot, kv head)
+    pairs: a ticket each, then the running maxima of its `MAX_ROWS` rows;
+    zeros, which every launch leaves zero (its merging block resets its
+    own), so none is cleared per call.  Launches that share them run on
+    one stream at a time."""
+    n *= 1 + MAX_ROWS
+    t = _TICKETS.get(dev.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=dev)
+        _TICKETS[dev.index] = t
+    return t
+
+
 def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
                  t, seg, nseg, n_pages, c, gapped, window, scale, what):
-    """Check the operands of the rows kernel and launch it (with its
-    combine); returns the (B,T,H,D) output."""
+    """Check the operands of the rows kernel and launch it; returns the
+    (B,T,H,D) output."""
     b, _, h, d = q.shape
     hkv = k.shape[2]
     dev = q.device
@@ -199,16 +380,18 @@ def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
     g = h // hkv
     if not rows_takes(t, g, d, seg, k.element_size()):
         raise ValueError(f"{what} kernel takes T*G <= {MAX_ROWS} query rows "
-                         f"a kv head, D a multiple of 32 up to 1024 and a "
-                         f"tile that fits in shared memory "
-                         f"({_build.MAX_SMEM} B), got T={t}, G={g}, D={d}")
-    tr = math.gcd(seg, TILE_ROWS)
-    rr = t * g
-    n_splits = nseg // c
-    m = torch.empty((b, hkv, rr, n_splits), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b, hkv, rr, n_splits, d), dtype=torch.float32,
-                      device=dev)
+                         f"a kv head, D a multiple of 32 up to {MAX_ROWS_D} "
+                         f"and a block that fits in shared memory "
+                         f"({ROWS_SMEM} B), got T={t}, G={g}, D={d}")
+    rr, n_splits = t * g, nseg // c
+    ln = rows_launch(rr, d, seg, nseg, c, k.element_size())
+    if ln.smem > ROWS_SMEM:
+        raise ValueError(f"{what} kernel: {ln.per_block * c} segments a "
+                         f"block need {ln.smem} B of shared memory, more "
+                         f"than {ROWS_SMEM}")
+    r4 = -(-rr // 4) * 4                             # m and l rows, acc
+    ws = torch.empty(b * hkv * n_splits * (2 * r4 + rr * d),
+                     dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     rc = lib.split_kv_attention(
@@ -216,10 +399,10 @@ def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         block_table.data_ptr() if paged else None, pos0.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), _tickets(dev, b * hkv).data_ptr(), out.data_ptr(),
         int(quant), int(paged), b, hkv, g, t, d, n_pages, seg, nseg, c,
-        int(gapped), window or 0, tr, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(gapped), window or 0, ln.stages, ln.blocks, ln.per_block,
+        float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, f"{what} ({'int8' if quant else 'bf16'})")
     return out
 

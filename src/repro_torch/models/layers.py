@@ -35,8 +35,8 @@ BACKENDS = ("ref", "cuda")
 # kernel does not hold a geometry that the reference's kernel takes (the
 # `*_kernel_takes` rules below), counted per call: flash and block-sparse
 # flash head dims other than 64 / 128 / 256 (or programs past 128 rows at
-# 256), verify with T*G > 32 query rows a kv head, paged decode with
-# G > 8.  On the card such a geometry raises NotImplementedError
+# 256), verify and contiguous decode with T*G > 64 query rows a kv head
+# (or a head dim past 256), paged decode with G > 8.  On the card such a geometry raises NotImplementedError
 # (`_not_held`): the plain path never stands in for a kernel there.
 flash_plain_routes = 0
 sparse_plain_routes = 0
@@ -425,7 +425,7 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0, *, window=None,
     position ``pos0[b] + t``; pools, block_table and scales as in
     `paged_decode_attention`.  A kernel backend dispatches the short-q
     verify kernel when the per-slot page count tiles by the degree (more
-    than 32 query rows T*G a kv head, `rows_kernel_takes`, raise
+    than 64 query rows T*G a kv head, `rows_kernel_takes`, raise
     NotImplementedError on the card and take the plain path on CPU
     tensors, counted in ``verify_plain_routes``); the plain path gathers the table into contiguous views and runs the decode
     dense contraction with one more row axis, row for row what

@@ -174,9 +174,9 @@ ROUTES = {
     "qwen1.5-4b": (True, True, True, True),
     "seamless-m4t-large-v2": (True, True, True, True),
     "gemma3-1b": (True, True, True, True),
-    "recurrentgemma-2b": (True, False, False, True),    # G 10
-    "yi-34b": (True, True, False, True),                # T*G = 35
-    "qwen2-vl-7b": (True, True, False, True),           # T*G = 35
+    "recurrentgemma-2b": (True, False, True, True),     # paged G 10
+    "yi-34b": (True, True, True, True),                 # T*G = 35
+    "qwen2-vl-7b": (True, True, True, True),            # T*G = 35
 }
 
 
@@ -222,10 +222,12 @@ def test_paged_decode_route_beyond_the_kernel(h, hkv, plain):
         torch.testing.assert_close(got, want, **TOL)
 
 
-@pytest.mark.parametrize("h,hkv,plain", [(14, 2, True), (4, 2, False)])
+@pytest.mark.parametrize("h,hkv,plain", [(26, 2, True), (14, 2, False),
+                                          (4, 2, False)])
 def test_verify_route_beyond_the_kernel(h, hkv, plain):
-    """T*G > 32 query rows a kv head (yi-34b at --spec-k 4: 5 * 7) takes
-    the plain path under the kernel backend, counted."""
+    """T*G > 64 query rows a kv head (5 * 13) takes the plain path under
+    the kernel backend, counted; yi-34b's 5 * 7 at --spec-k 4 and 5 * 2
+    take the kernel's wrapper."""
     rng = np.random.default_rng(2)
     _, kp, vp, bt, pos = _pools(rng, 2, h, hkv, 32)
     q = torch.from_numpy(_rand(rng, 2, 5, h, 32))
@@ -260,9 +262,9 @@ def test_flash_route_beyond_the_kernel(d, plain):
 
 
 def test_contiguous_decode_route_beyond_the_kernel():
-    """G > 32 query rows a kv head takes the dense path, counted."""
+    """G > 64 query rows a kv head takes the dense path, counted."""
     rng = np.random.default_rng(4)
-    q = torch.from_numpy(_rand(rng, 2, 1, 40, 32))
+    q = torch.from_numpy(_rand(rng, 2, 1, 72, 32))
     kc = torch.from_numpy(_rand(rng, 2, 16, 1, 32))
     vc = torch.from_numpy(_rand(rng, 2, 16, 1, 32))
     pos = torch.tensor([3, 15], dtype=torch.int32)
@@ -284,13 +286,13 @@ def _unheld(route):
         return lambda: TL.flash_attention(q, k, k, pos_trivial=True,
                                           backend="cuda", sparse="off")
     if route == "decode":
-        q, kc = torch.empty(2, 1, 40, 32, **m), torch.empty(2, 16, 1, 32, **m)
+        q, kc = torch.empty(2, 1, 72, 32, **m), torch.empty(2, 16, 1, 32, **m)
         pos = torch.empty(2, dtype=torch.int32, **m)
         return lambda: TL.decode_attention(q, kc, kc, pos, backend="cuda",
                                            bkv=8)
-    t, h = (1, 10) if route == "paged" else (5, 14)
+    t, h = (1, 10) if route == "paged" else (5, 26)
     q = torch.empty(2, t, h, 32, **m)
-    kp = torch.empty(9, 4, h // 7 if route == "verify" else 1, 32, **m)
+    kp = torch.empty(9, 4, h // 13 if route == "verify" else 1, 32, **m)
     bt = torch.empty(2, 4, dtype=torch.int32, **m)
     pos = torch.empty(2, dtype=torch.int32, **m)
     fn = TL.paged_decode_attention if route == "paged" else \
