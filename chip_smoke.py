@@ -55,8 +55,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    256 forward's; for five q blocks every K/V row outside that block's live
    set NaN, its rows still held; a plain model of a skipped live slot must
    exceed the limit; base and gap2 again with global columns (stride
-   1024); its time beside the dense windowed forward's. The
-   qwen2-moe-a2.7b kernels: the int8-pool paged decode, the grouped-expert
+   1024); its time beside the dense windowed forward's. Paged decode
+   (row 1, the rows kernel at T = 1, verify's call with pos0 = pos) for
+   every label, with and without a window, and at recurrentgemma-2b's G 10
+   (one kv head, D 256; bf16 and int8 pools, two launches bit-equal). The
+   row norm of the decode and verify steps at their shapes (ln over d
+   1024, the q and k norms over hd 128; 8 and 40 rows), each element
+   within 1 bf16 ulp of its plain version, launched twice bit-equal,
+   lane 0's values lost from the sum of squares shown to exceed it, and
+   timed beside `F.rms_norm`. The qwen2-moe-a2.7b kernels: the int8-pool paged decode, the grouped-expert
    MoE FFN (capacities 128 and 8), its dequant-fused twin (int8 and int4)
    and the dequant-fused matmul (int8 and int4), each error printed as a
    ratio of its limit beside a fault model (a lost page of V scales, a lost
@@ -101,6 +108,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    maps, a slice reading the next slice's window and con/gap swapped
    shown to fail; its launch timed with bases planned once, beside row
    16's gather with one table on the same ids.
+   invariance — each op of a full-width qwen3-0.6b decode step on 8 rows
+   alone and on the same 8 rows at rows {0, 8, 13, 32} of a 40-row batch
+   (a verify pass at K 4), bit for bit, in 4 draws: the 7 products and
+   the head on the steps' route (row 2's kernel at base, the K split of
+   one 64-row tile; the bf16 store the steps run, and the float32 sums),
+   the norm over d and the qk-norm over hd on the row norm, each beside
+   the torch op it replaced (a probe, reported: the products, and the
+   float32 statistic mean(x^2) of the torch norm), RoPE and SiLU*up
+   (elementwise torch ops the steps keep), and the paged attention at
+   T = 1 against T = 5 (bf16 and int8 pools); any op of the steps that
+   parts fails the run.  Then each route product at M 8 and M 40 (ragged
+   rows, the bf16 store, the tied head read K-major) against its plain
+   version rounded to bf16, within one bf16 ulp (plus the f32 sums' order
+   bound), launched twice bit-equal, beside fault models that must exceed
+   the limit (a K slice dropped, two column tiles swapped, the head's
+   weight read MN-major).  The route's products timed at M 8 and M 40
+   beside the plain version and `torch.matmul`, and the host time of one
+   call.  (``--phases invariance`` runs it alone.)
    tune — `warm_from_flag(qwen3-0.6b, "exhaustive")` at the paged serve
    geometry (8 slots x 1024, page 16) into a fresh cache under
    `build/chip_smoke_tune/<pid>/`: every family's candidates with their
@@ -118,8 +143,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. serve  — full-width qwen3-0.6b (28 layers, random bf16 weights from a
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
-   are zeroed just before this run and read just after it.  Then the same
-   trace through the plain paths, and one full-width `lm_decode_step` on a
+   are zeroed just before this run and read just after it: 28 paged decode
+   launches, 113 of the row norm (ln1, ln2, the q and k norms of 28
+   layers and the final norm) and 197 of row 2 (q, k, v, o, gate, up and
+   down of 28 layers and the head, the steps' route) a decode step, 84 of
+   row 2 a full prefill chunk.  Then the same trace through the plain paths, and one full-width `lm_decode_step` on a
    shared cache, kernel path against plain path.  From the same weights
    (phases ``contig`` and ``spec``, each in a process of its own that
    runs beside these serve runs, and whose output is printed, tagged, when
@@ -127,19 +155,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and then int8 KV, each with one contiguous-decode launch a layer per
    decode step and a contiguous `lm_decode_step`, kernel path against
    plain path;
-   a verify-vs-decode check (row t of `lm_verify_step` against
-   `lm_decode_step` at pos0 + t, kernel path, within 5% of the largest
-   logit, with a shifted mask shown to exceed it); and 8 requests of 32
-   tokens through `Scheduler` over `SpecPagedEngine` (K 4, an undersized
-   pool) twice, a `draft_of` draft and a self draft, each with every
-   request FINISHED, no page leak, a preemption and one verify launch a
-   layer per verify step; a third (`draft_of`) whose tie guard voids
-   every verify row must emit a `PagedEngine` run's tokens on every
-   request, and the first two runs' tokens against it are reported; a
-   fourth (`draft_of`, int8 KV pools) passes the same checks with one int8
-   verify launch a layer per verify step.  In the verify-vs-decode
-   check (16 draws of random draft tokens), every verify row that clears
-   the spec tie guard must keep its decode row's argmax.  Then (phase
+   a verify-vs-decode check on bf16 and on int8 pools (row t of
+   `lm_verify_step` against `lm_decode_step` at pos0 + t, kernel path, 16
+   draws of random draft tokens: every row and the pools each pass leaves
+   behind bit for bit, 197 launches of row 2, 113 of the row norm and 28
+   of the rows kernel a step, a shifted mask shown to part); and 8 requests of 32 tokens
+   through `Scheduler` over `SpecPagedEngine` (K 4, an undersized pool)
+   four times: a `draft_of` draft, a self draft, a `draft_of` draft whose
+   tie guard voids every verify row, and a `draft_of` draft on int8 KV
+   pools, each with every request FINISHED, no page leak, a preemption
+   and one verify launch a layer per verify step, and each emitting a
+   `PagedEngine` run's tokens (on pools of its kind) on every request,
+   preemptions per request printed beside the first divergence.  Then (phase
    ``tuned-serve``) the paged trace again through `PagedEngine(tune="exhaustive")` on the tune
    phase's cache, under phase 4's hard checks (28 paged decode launches
    per decode step), with the keys the run filed, the label each resolved
@@ -177,8 +204,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights and KV (MoE kernel, paged decode, shared-expert matmul), then
    int8 weights and int8 KV pools (their dequant-fused and int8 twins);
    24 MoE launches per prefill chunk and decode step, 24 decode launches
-   per decode step and 72 shared-FFN launches per full prefill chunk are
-   checked.  One full-width `lm_decode_step`, kernel path against plain
+   per decode step, 169 launches of row 2 per decode step (q, k, v, o and
+   the shared FFN of 24 layers and the head, the steps' route, weights
+   dequantized first under int8), 49 of the row norm per decode step and
+   72 shared-FFN launches per full prefill chunk are checked.  One full-width `lm_decode_step`, kernel path against plain
    path.
 7. paper — the figure sweeps `repro_torch.bench.fig8_apps`, `fig11_ai`,
    `fig10_mem_divergence` and `fig13_divdeg` at the paper's sizes, every
@@ -199,6 +228,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -212,6 +242,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -237,6 +268,7 @@ from repro_torch.kernels import gather_stream as gs_mod  # noqa: E402
 from repro_torch.kernels import matmul as mm_mod  # noqa: E402
 from repro_torch.kernels import moe_ffn as moe_mod  # noqa: E402
 from repro_torch.kernels import rglru as rg_mod  # noqa: E402
+from repro_torch.kernels import rmsnorm as norm_mod  # noqa: E402
 from repro_torch.kernels import sparse_attention as sp_mod  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels import stencil as st_mod  # noqa: E402
@@ -381,6 +413,30 @@ def decode_inputs(gen: torch.Generator):
             pos.to(torch.int32))
 
 
+# recurrentgemma-2b's paged decode: G 10 at head dim 256, one kv head (row
+# 1's old kernel took G <= 8; the rows kernel takes T*G <= 64)
+PAGED_WIDE = dict(b=4, h=10, hkv=1, d=256, ps=16, npp=64, t=1)
+
+
+def paged_geometry_check(gen: torch.Generator) -> None:
+    """Paged decode at `PAGED_WIDE` (bf16 and int8 pools, base) against its
+    plain version, each launched twice bit-equal."""
+    for quant in (False, True):
+        q, kp, vp, bt, pos0, sc = verify_operands(gen, PAGED_WIDE, quant)
+        got = ops.paged_decode_attention(q, kp, vp, bt, pos0, **sc)
+        again = ops.paged_decode_attention(q, kp, vp, bt, pos0, **sc)
+        torch.cuda.synchronize()
+        want = ref.verify_split_kv(q, kp, vp, bt, pos0, **sc)
+        err, tol = (got.float() - want.float()).abs().max().item(), \
+            dec_tol(want)
+        print(f"paged decode G 10, D 256 ({'int8' if quant else 'bf16'} "
+              f"pools): max|kernel-plain| {err:.3e} (tol {tol:.3e}); two "
+              f"launches bit-equal: {torch.equal(got, again)}", flush=True)
+        if not (err <= tol and torch.equal(got, again)):
+            raise SystemExit("paged decode at G 10 disagrees with its plain "
+                             "version or between launches")
+
+
 def decode_phase(gen: torch.Generator) -> dict:
     q, kp, vp, bt, pos = decode_inputs(gen)
     worst = 0.0
@@ -407,6 +463,7 @@ def decode_phase(gen: torch.Generator) -> dict:
                                  f"plain version")
             worst = max(worst, err, err_o)
 
+    paged_geometry_check(gen)
     b, h, hkv, d, ps = (DEC[k] for k in ("b", "h", "hkv", "d", "ps"))
     live = pos.long() + 1
     kv_bytes = int(2 * live.sum().item() * hkv * d * 2)
@@ -587,6 +644,75 @@ def matmul_phase(gen: torch.Generator) -> dict:
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": f32_ms if has_f32 else lib_ms}
+
+
+# -- phase 3: the row norm of the decode and verify steps ---------------------
+
+def rmsnorm_phase(gen: torch.Generator) -> dict:
+    """The row norm (`kernels/rmsnorm.py`, added for batch invariance) at a
+    qwen3-0.6b decode step's shapes (ln over d 1024, the q and k norms over
+    hd 128) and a verify pass's (K 4), each launched twice and bit-equal,
+    every element within 1 bf16 ulp (2^-7 of its magnitude) of the plain
+    version (the two sum the squares in other orders); a model of lane
+    0's values lost from the sum of squares must exceed it.  Timed at one
+    ln call of a decode step."""
+    cfg = get_config("qwen3-0.6b")
+    worst = 0.0
+    for rows_, d in ((SLOTS, cfg.d_model), (SLOTS * (SPEC_K + 1),
+                                            cfg.d_model),
+                     (SLOTS * cfg.n_heads, cfg.hd),
+                     (SLOTS * (SPEC_K + 1) * cfg.n_kv_heads, cfg.hd)):
+        x = (4 * torch.randn(rows_, d, generator=gen, device="cuda")
+             ).bfloat16()
+        sc = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        got = norm_mod.rmsnorm(x, sc, cfg.norm_eps)
+        again = norm_mod.rmsnorm(x, sc, cfg.norm_eps)
+        torch.cuda.synchronize()
+        want = ref.rmsnorm(x, sc, cfg.norm_eps).float()
+        lim = 2.0 ** -7 * want.abs()
+        ratio = ((got.float() - want).abs() / lim.clamp(min=1e-30)).max()
+        keep = torch.ones(d, dtype=torch.bool, device="cuda")
+        keep[(torch.arange(d, device="cuda") % 256) < 8] = False
+        xf = x.float()
+        var = (xf.square() * keep).sum(-1, keepdim=True) / d
+        bad = (xf * torch.rsqrt(var + cfg.norm_eps) * (1 + sc)
+               ).bfloat16().float()
+        fault = ((bad - want).abs() / lim.clamp(min=1e-30)).max().item()
+        same = torch.equal(got, again)
+        print(f"rmsnorm ({rows_}x{d}): max |kernel-plain| / (2^-7 |plain|) "
+              f"{ratio.item():.3f}; fault model (lane 0's values lost from "
+              f"the sum of squares) / limit {fault:.1f}; two launches "
+              f"bit-equal: {same}", flush=True)
+        if not (ratio.item() <= 1 and same):
+            raise SystemExit("the row norm disagrees with its plain version "
+                             "or between launches")
+        if not fault > 1:
+            raise SystemExit("the row norm's limit would not catch a lost "
+                             "lane")
+        worst = max(worst, (got.float() - want).abs().max().item())
+    x = torch.randn(SLOTS, cfg.d_model, generator=gen, device="cuda"
+                    ).bfloat16()
+    sc = 0.1 * torch.randn(cfg.d_model, generator=gen, device="cuda")
+    w1 = 1 + sc
+    bms, by = bound(4 * x.numel() + 4 * cfg.d_model, 4 * x.numel())
+    ms = time_ms(lambda: norm_mod.rmsnorm(x, sc, cfg.norm_eps))
+    plain_ms = time_ms(lambda: ref.rmsnorm(x, sc, cfg.norm_eps))
+    lib_ms = time_ms(lambda: F.rms_norm(x, (cfg.d_model,), weight=w1,
+                                        eps=cfg.norm_eps)) \
+        if hasattr(F, "rms_norm") else None
+    print(f"rmsnorm timing ({SLOTS}x{cfg.d_model}, a decode step's ln): "
+          f"kernel {ms:.4f} ms | bound {bms:.4f} ms ({by}) | plain "
+          f"{plain_ms:.4f} ms | F.rms_norm (weight 1 + scale) "
+          f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'} | host "
+          f"{host_us(lambda: norm_mod.rmsnorm(x, sc, cfg.norm_eps)):.1f} us a "
+          f"call, plain "
+          f"{host_us(lambda: ref.rmsnorm(x, sc, cfg.norm_eps)):.1f} us",
+          flush=True)
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/models/layers.py:87",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
 # -- phase 3: flash attention (forward, dQ, dK/dV) ---------------------------
@@ -2674,13 +2800,28 @@ def trace(vocab: int):
     return [list(map(int, rng.integers(1, vocab, n))) for n in lens]
 
 
+def prefills(eng) -> list:
+    """The token count of every prefill ``eng`` runs from now on
+    (admissions, and the recompute of preempted requests), in a list that
+    fills as it runs."""
+    lens, run = [], eng._run_prefill
+
+    def recorded(slot, tokens, rid=None):
+        lens.append(len(tokens))
+        return run(slot, tokens, rid=rid)
+    eng._run_prefill = recorded
+    return lens
+
+
 def serve(cfg, params, prompts, num_pages, backend: str, tune=None):
     """The trace through the Scheduler over a PagedEngine (warmed first
-    when ``tune`` is given) -> (requests, preemptions, decode steps)."""
+    when ``tune`` is given) -> (requests, preemptions, decode steps, full
+    prefill chunks)."""
     eng = PagedEngine(cfg, params, slots=SLOTS, num_pages=num_pages,
                       page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
                       decode_block=BLOCK, decode_backend=backend,
                       ffn_backend=backend, tune=tune, device="cuda")
+    lens = prefills(eng)
     sched = Scheduler(eng)
     for p in prompts:
         sched.submit(p, GEN)
@@ -2706,7 +2847,7 @@ def serve(cfg, params, prompts, num_pages, backend: str, tune=None):
           f"{eng.decoded_tokens} tok "
           f"{eng.decoded_tokens / eng.decode_device_s:.1f} tok/s",
           flush=True)
-    return done, npre, eng.decode_steps
+    return done, npre, eng.decode_steps, sum(n // CHUNK for n in lens)
 
 
 def decode_step_parity(cfg, params, prompts) -> None:
@@ -2735,10 +2876,10 @@ def decode_step_parity(cfg, params, prompts) -> None:
     torch.cuda.synchronize()
     diff = (logits["cuda"] - logits["ref"]).abs().max().item()
     scale = logits["ref"].abs().max().item()
-    # the paths differ only in decode attention's rounding (kernel: f32
-    # probabilities; plain: bf16 probabilities before PV), which the bf16
-    # residual stream carries through 28 layers: allow 5% of the largest
-    # logit
+    # the paths differ in decode attention's rounding (kernel: f32
+    # probabilities; plain: bf16 probabilities before PV) and in the order
+    # of the products' and norms' sums, which the bf16 residual stream
+    # carries through 28 layers: allow 5% of the largest logit
     tol = 0.05 * scale
     same = (logits["cuda"].argmax(-1) == logits["ref"].argmax(-1)).float()
     print(f"lm_decode_step parity (full width, 8 slots): max|kernel-plain| "
@@ -2759,18 +2900,29 @@ def serve_phase() -> dict:
           f"{need} at completion)", flush=True)
 
     zero_counts()
-    done, npre, _ = serve(cfg, params, prompts, num_pages, "cuda")
+    done, npre, steps, chunks = serve(cfg, params, prompts, num_pages,
+                                      "cuda")
     SERVED["base tokens"] = [r.output for r in done]
     counts = read_counts()
-    path = ("paged_decode_attention", "coarsened_matmul")
+    # row 2: every product of a decode step on the steps' route, and the
+    # FFN's three products of every full prefill chunk (8 x 16 rows tile;
+    # a shorter chunk's products are plain)
+    want = {"paged_decode_attention": cfg.n_layers * steps,
+            "rmsnorm": step_norms(cfg) * steps,
+            "coarsened_matmul": step_products(cfg) * steps
+            + 3 * cfg.n_layers * chunks}
     print(f"kernel launches on the served path: "
-          f"{ {k: counts[k] for k in path} }", flush=True)
+          f"{ {k: counts[k] for k in want} } over {steps} decode steps and "
+          f"{chunks} full prefill chunks ({step_products(cfg)} matmul, "
+          f"{step_norms(cfg)} row norm and {cfg.n_layers} paged decode a "
+          f"step, {3 * cfg.n_layers} matmul a chunk: {want})", flush=True)
     if npre < 1:
         raise SystemExit("the undersized pool forced no preemption")
-    if min(counts[k] for k in path) < 1:
-        raise SystemExit(f"a kernel of the path never launched: {counts}")
+    if any(counts[k] != v for k, v in want.items()) or chunks < 1:
+        raise SystemExit(f"the served path's launches are not {want}: "
+                         f"{ {k: counts[k] for k in want} }")
 
-    plain, _, _ = serve(cfg, params, prompts, num_pages, "ref")
+    plain, *_ = serve(cfg, params, prompts, num_pages, "ref")
     agree = [next((i for i, (a, b) in enumerate(zip(r.output, p.output))
                    if a != b), GEN) for r, p in zip(done, plain)]
     print(f"greedy tokens, kernel path vs plain path: "
@@ -2806,7 +2958,8 @@ COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "embed_gather": (eg_mod, "launches"),
             "ssd": (ssd_mod, "launches"),
             "rglru": (rg_mod, "launches"),
-            "windowed_gather": (wg_mod, "launches")}
+            "windowed_gather": (wg_mod, "launches"),
+            "rmsnorm": (norm_mod, "launches")}
 
 
 def zero_counts() -> None:
@@ -2843,6 +2996,7 @@ def moe_serve(cfg, params, prompts, num_pages, quant) -> dict:
     counts of its kernels, returns the counts."""
     tag = f"qwen2-moe {quant or 'bf16'}"
     eng = moe_engine(cfg, params, num_pages, quant)
+    lens = prefills(eng)
     sched = Scheduler(eng)
     for p in prompts:
         sched.submit(p, MOE_GEN)
@@ -2884,13 +3038,25 @@ def moe_serve(cfg, params, prompts, num_pages, quant) -> dict:
                           ("moe_ffn", "paged_decode_attention",
                            "coarsened_matmul"))
     want = {moe_k: n_layers * (eng.prefill_steps + eng.decode_steps),
-            dec_k: n_layers * eng.decode_steps}
+            dec_k: n_layers * eng.decode_steps,
+            "rmsnorm": step_norms(cfg) * eng.decode_steps}
+    # a decode step's q, k, v, o, shared-FFN products and head on the
+    # steps' route (row 2, weights dequantized first under int8); the
+    # shared FFN of a full prefill chunk on row 2 (bf16) or row 10 (int8)
+    step_mm = step_products(cfg) * eng.decode_steps
+    prefill_mm = 3 * n_layers * sum(n // MOE_SERVE["chunk"] for n in lens)
+    if quant:
+        want.update({"coarsened_matmul": step_mm, mm_k: prefill_mm})
+    else:
+        want[mm_k] = step_mm + prefill_mm
     bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
-    if bad or counts[mm_k] < 3 * n_layers or counts[mm_k] % (3 * n_layers):
+    if bad or not prefill_mm:
         raise SystemExit(f"{tag}: launch counts {path} are not 24 per "
                          f"prefill chunk and decode step (MoE), 24 per "
-                         f"decode step (decode), 72 per full prefill chunk "
-                         f"(shared FFN): {bad}")
+                         f"decode step (decode), {step_products(cfg)} and "
+                         f"{step_norms(cfg)} per decode step (the steps' "
+                         f"products and norms) and 72 per full prefill "
+                         f"chunk (shared FFN): {bad}")
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
@@ -2999,11 +3165,12 @@ def moe_decode_step_parity(cfg, params, prompts, quant) -> None:
         ratios[faults[0]].append(ratio(attn(cfgs["cuda"], bad), xo["ref"],
                                        xo["cuda"] - x))
         h = L.rmsnorm(p["ln2"], xo["cuda"], cfg.norm_eps)
-        y = {b: L.moe(p["moe"], h, c, capacity=cap)[0]
+        y = {b: L.moe(p["moe"], h, c, capacity=cap, step=True)[0]
              for b, c in cfgs.items()}
         ratios["moe"].append(ratio(y["cuda"], y["ref"], y["cuda"]))
         with lost_expert():
-            yb = L.moe(p["moe"], h, cfgs["cuda"], capacity=cap)[0]
+            yb = L.moe(p["moe"], h, cfgs["cuda"], capacity=cap,
+                       step=True)[0]
         ratios[faults[1]].append(ratio(yb, y["ref"], y["cuda"]))
         x = xo["cuda"] + y["cuda"]
     logits, routes = {}, {}
@@ -3184,16 +3351,238 @@ def contig_serve_phase() -> dict:
     return totals
 
 
+# -- invariance: the decode and verify steps' ops, 8 rows alone and in 40 ----
+
+INV_ROWS, INV_BATCH = 8, 40      # a decode step's rows, a verify pass's (K 4)
+INV_PLACES = (0, 8, 13, 32)      # where the 8 rows sit in the 40-row batch
+INV_DRAWS = 4                    # draws of the 8 rows an op
+
+
+def placed(args: tuple, at: int, gen) -> tuple:
+    """Each of ``args`` (8 rows each) at rows at .. at + 7 of a 40-row
+    batch whose other rows are fresh draws of the same kind."""
+    out = []
+    for a in args:
+        if a.is_floating_point():
+            big = torch.randn((INV_BATCH,) + a.shape[1:], generator=gen,
+                              device="cuda").to(a.dtype)
+        else:
+            big = torch.randint(64, 600, (INV_BATCH,) + a.shape[1:],
+                                generator=gen, device="cuda").to(a.dtype)
+        big[at:at + INV_ROWS] = a
+        out.append(big)
+    return tuple(out)
+
+
+def parted(op, args: tuple, gen) -> list:
+    """The places at which ``op``'s 8 rows inside the 40-row batch are not
+    bit-equal to ``op`` on the 8 rows alone."""
+    alone = op(*args)
+    return [at for at in INV_PLACES
+            if not torch.equal(op(*placed(args, at, gen))[at:at + INV_ROWS],
+                               alone)]
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each v > 0: 2^(floor(log2 v) - 7)."""
+    _, e = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def step_products_hold(w: dict, gen) -> float:
+    """Each product of the steps' route as the steps call it (`layers.dense`
+    with ``kernel``: ragged rows, the bf16 store, the tied head read
+    K-major in place) at a decode step's 8 rows and a verify pass's 40,
+    against its plain version rounded to bf16 (`ref.matmul(a, b)
+    .bfloat16()`): within one bf16 ulp of each element plus the order
+    bound of the float32 sums (`mm_tol`, which matters only near zero);
+    launched twice, bit-equal; beside fault models that must exceed that
+    limit somewhere: slice 0's partial dropped (where the plan splits K),
+    the first two 64-column tiles swapped, and for the K-major head the
+    weight's memory read MN-major.  A rounding that falls the other way
+    reads just under 1 (one ulp against one ulp plus the order bound).
+    Returns the largest error / limit."""
+    sms = mm_mod.sm_count(torch.device("cuda"))
+    worst = 0.0
+    for m in (INV_ROWS, INV_BATCH):
+        for name, wt in w.items():
+            k, n = wt.shape
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            got = L.dense(x, wt, kernel=True)
+            again = L.dense(x, wt, kernel=True)
+            torch.cuda.synchronize()
+            want32 = ref.matmul(x, wt)
+            dlt = mm_tol(k, want32.abs().max().item())
+            lim = bf16_ulp(want32.abs() + dlt) + dlt
+            want = want32.bfloat16()
+
+            def ratio(y):
+                return ((y.float() - want.float()).abs() / lim).max().item()
+
+            plan = mm_mod.step_plan(m, n, k, sms)
+            faults = []
+            if plan.splits > 1:
+                k0, k1 = plan.bounds(k)[0]
+                faults.append(("slice 0's partial dropped", ratio(
+                    want32 - ref.matmul(x[:, k0:k1], wt[k0:k1]))))
+            swapped = want.clone()
+            swapped[:, :mm_mod.BN] = want[:, mm_mod.BN:2 * mm_mod.BN]
+            swapped[:, mm_mod.BN:2 * mm_mod.BN] = want[:, :mm_mod.BN]
+            faults.append(("column tiles 0 and 1 swapped", ratio(swapped)))
+            if not wt.is_contiguous():
+                faults.append(("the K-major weight read MN-major", ratio(
+                    ref.matmul(x, wt.T.reshape(k, n)))))
+            r, same = ratio(got), torch.equal(got, again)
+            print(f"step product {name} at M {m} ({m}x{k})@({k}x{n}), "
+                  f"{got.dtype} store, "
+                  f"{'K-major' if not wt.is_contiguous() else 'MN-major'} "
+                  f"weight, S {plan.splits}: max |route - plain| / limit "
+                  f"(1 bf16 ulp + {dlt:.2e}) {r:.3f}; two launches "
+                  f"bit-equal: {same}"
+                  + "".join(f"; fault model ({what}) / limit {fr:.1f}"
+                            for what, fr in faults), flush=True)
+            if not (got.dtype == torch.bfloat16 and r <= 1):
+                raise SystemExit(f"step product {name} at M {m} disagrees "
+                                 f"with its plain version")
+            if not same:
+                raise SystemExit(f"step product {name} at M {m} gave other "
+                                 f"bits on a second launch")
+            for what, fr in faults:
+                if not fr > 1:
+                    raise SystemExit(f"the step product limit would not "
+                                     f"catch {what} ({name}, M {m})")
+            worst = max(worst, r)
+    return worst
+
+
+def invariance_phase() -> dict:
+    """Each op of a full-width qwen3-0.6b decode step (layer 0's weights,
+    the tied head) on 8 rows alone and on the same 8 rows at rows {0, 8,
+    13, 32} of a 40-row batch, bit for bit, over `INV_DRAWS` draws: the 7
+    products and the head on the steps' route (the bf16 store the steps
+    run, `layers.dense` with ``kernel``, each beside the torch product it
+    replaced, a probe, reported: bf16 cuBLAS for q, k, v, o and the head,
+    the float32 product the FFN took at untiled rows; and their float32
+    sums, `matmul.step_matmul`); the norm over d and the qk-norm over hd
+    on the row kernel, each beside the float32 statistic of the torch
+    norm it replaced (mean(x^2), a probe); RoPE and SiLU*up, elementwise
+    torch ops the steps keep; then the paged attention at T = 1 against
+    T = 5 (bf16 and int8 pools).  Any op of the steps that parts fails the
+    run.  Then the route's products against their plain versions
+    (`step_products_hold`), and timed at M 8 and M 40 beside the plain
+    version and `torch.matmul` at the same shapes, with the host time of
+    one call."""
+    cfg, params = qwen3()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    lay = params["layers"][0]
+    w = {"q": lay["attn"]["wq"], "k": lay["attn"]["wk"],
+         "v": lay["attn"]["wv"], "o": lay["attn"]["wo"],
+         "gate": lay["ffn"]["w1"], "up": lay["ffn"]["w3"],
+         "down": lay["ffn"]["w2"], "head": M._head(params, cfg)}
+
+    def rows(*shape):
+        return torch.randn((INV_ROWS,) + shape, generator=gen,
+                           device="cuda").bfloat16()
+
+    def norm(n):
+        return {"scale": 0.1 * torch.randn(n, generator=gen, device="cuda")}
+
+    def mean_sq(x):                  # the torch norm's f32 statistic
+        return x.float().square().mean(dim=-1)
+
+    ops_ = {}          # op -> (the step's op, the op it replaced, inputs)
+    for name, wt in w.items():
+        old = ((lambda x, wt=wt: torch.matmul(x.float(), wt.float()))
+               if name in ("gate", "up", "down") else
+               (lambda x, wt=wt: x @ wt))
+        shape = f"({wt.shape[0]}x{wt.shape[1]})"
+        ops_[f"product {name} {shape}, bf16 store"] = (
+            lambda x, wt=wt: L.dense(x, wt, kernel=True), old,
+            lambda wt=wt: (rows(wt.shape[0]),))
+        ops_[f"product {name} {shape}, f32 sums"] = (
+            lambda x, wt=wt: mm_mod.step_matmul(x, wt), None,
+            lambda wt=wt: (rows(wt.shape[0]),))
+    nd = norm(cfg.d_model)
+    ops_["rmsnorm over d"] = (
+        lambda x: L.rmsnorm(nd, x, cfg.norm_eps, kernel=True), mean_sq,
+        lambda: (rows(cfg.d_model),))
+    for name, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads)):
+        sc = norm(cfg.hd)
+        ops_[f"qk-norm over hd ({name})"] = (
+            lambda x, sc=sc: L.rmsnorm(sc, x, cfg.norm_eps, kernel=True),
+            mean_sq, lambda heads=heads: (rows(1, heads, cfg.hd),))
+    ops_["RoPE"] = (lambda x, p: L.apply_rope(x, p, cfg.rope_theta), None,
+                    lambda: (rows(1, cfg.n_heads, cfg.hd),
+                             torch.randint(64, 600, (INV_ROWS, 1),
+                                           generator=gen, device="cuda")))
+    ops_["SiLU*up"] = (lambda g, u: F.silu(g) * u, None,
+                       lambda: (rows(cfg.d_ff), rows(cfg.d_ff)))
+    bad = []
+    for name, (step_op, old_op, draw) in ops_.items():
+        got, old = set(), []
+        for _ in range(INV_DRAWS):
+            args = draw()
+            got.update(parted(step_op, args, gen))
+            if old_op is not None:
+                old.append(parted(old_op, args, gen))
+        probe = ("" if old_op is None else
+                 f"; the torch op it replaced parts in "
+                 f"{sum(map(bool, old))} of {INV_DRAWS} draws (places "
+                 f"{sorted(set().union(*old))})")
+        print(f"invariance {name}: the step's op "
+              f"{'(torch, kept) ' if name in ('RoPE', 'SiLU*up') else ''}"
+              + (f"bit-equal at every place of {INV_PLACES} in "
+                 f"{INV_DRAWS} draws" if not got else
+                 f"PARTS at {sorted(got)}") + probe, flush=True)
+        if got:
+            bad.append(name)
+    # the paged attention: five T = 1 calls at pos0 + t against T = 5
+    for quant in (False, True):
+        q, kp, vp, bt, pos0, sc = verify_operands(gen, VER, quant)
+        ver = ops.flash_attention_verify(q, kp, vp, bt, pos0, **sc)
+        same = [torch.equal(ops.paged_decode_attention(
+            q[:, t:t + 1].contiguous(), kp, vp, bt, pos0 + t, **sc),
+            ver[:, t:t + 1]) for t in range(SPEC_K + 1)]
+        print(f"invariance paged attention ({'int8' if quant else 'bf16'} "
+              f"pools): paged decode at pos0 + t bit-equal to verify row t "
+              f"(T {SPEC_K + 1}): {same}", flush=True)
+        if not all(same):
+            bad.append(f"paged attention {'int8' if quant else 'bf16'}")
+    if bad:
+        raise SystemExit(f"step ops part from their rows alone: {bad}")
+    step_products_hold(w, gen)
+    # the route's products at a decode step's and a verify pass's rows
+    sms = mm_mod.sm_count(torch.device("cuda"))
+    for name, wt in w.items():
+        k, n = wt.shape
+        plan = mm_mod.step_plan(INV_ROWS, n, k, sms)
+        line = []
+        for m in (INV_ROWS, INV_BATCH):
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            one, _ = bound(2 * m * k + 2 * k * n + 2 * m * n, 2 * m * n * k)
+            line.append(
+                f"M {m}: route "
+                f"{time_ms(lambda: L.dense(x, wt, kernel=True)):.4f} ms, "
+                f"plain {time_ms(lambda: ref.matmul(x, wt)):.4f} ms, "
+                f"torch.matmul {time_ms(lambda: torch.matmul(x, wt)):.4f} "
+                f"ms, bound {one:.4f}")
+        print(f"step product {name} ({k}x{n}), S {plan.splits}, "
+              f"{plan.grid[1]} column tiles: " + "; ".join(line), flush=True)
+    x = torch.randn(INV_ROWS, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    print(f"step product host time of one call (8x1024)@(1024x2048): route "
+          f"{host_us(lambda: L.dense(x, w['q'], kernel=True)):.1f} us (its "
+          f"wrapper alone "
+          f"{host_us(lambda: mm_mod.step_matmul(x, w['q'], torch.bfloat16)):.1f}"
+          f" us) | torch.matmul "
+          f"{host_us(lambda: torch.matmul(x, w['q'])):.1f} us", flush=True)
+    return {}
+
+
 # -- phase 8: speculative serve of qwen3-0.6b (SpecPagedEngine) ---------------
 
 SPEC_K, SPEC_REQ, SPEC_GEN = 4, 8, 32
 EXACT_DRAWS = 16                 # draft-token draws of the exactness check
-# row t of a verify against lm_decode_step at pos0 + t, both on the kernel
-# path: they differ only in summation order (T*8 against 8 rows in every
-# product, the verify kernel against the decode kernel), which the bf16
-# residual stream carries through 28 layers — the paged step check's 5% of
-# the largest |logit|
-SPEC_LIMIT = 0.05
 
 
 def spec_engine(cfg, params, num_pages, draft: str, **kw):
@@ -3212,7 +3601,7 @@ def spec_serve(cfg, params, prompts, num_pages, draft: str, **kw) -> tuple:
     """The spec trace through the Scheduler over a SpecPagedEngine: every
     request FINISHED, ``pool.check()``, no page leak, at least one
     preemption, and 28 verify launches per verify step.  Returns (counts,
-    outputs)."""
+    outputs, preemptions per request)."""
     eng = spec_engine(cfg, params, num_pages, draft, **kw)
     draft = draft + (" " + ",".join(f"{k}={v}" for k, v in kw.items())
                      if kw else "")
@@ -3260,7 +3649,7 @@ def spec_serve(cfg, params, prompts, num_pages, draft: str, **kw) -> tuple:
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, outputs
+    return counts, outputs, [r.preemptions for r in done]
 
 
 @contextlib.contextmanager
@@ -3277,20 +3666,35 @@ def shifted_verify_mask():
         dec_mod.verify_attention = saved
 
 
-def verify_decode_exactness(cfg, params, prompts) -> None:
+def step_products(cfg) -> int:
+    """Row 2's launches a decode or verify step makes on the steps' route:
+    q, k, v, o and the three (shared-expert) FFN products a layer, and the
+    head."""
+    return 7 * cfg.n_layers + 1
+
+
+def step_norms(cfg) -> int:
+    """The row norm's launches a decode or verify step makes: ln1, ln2
+    (and the q and k norms) a layer, and the final norm."""
+    return cfg.n_layers * (2 + 2 * int(cfg.qk_norm)) + 1
+
+
+def verify_decode_exactness(cfg, params, prompts, kv_quant: str) -> None:
     """The accept rule's premise at full width: on a shared cache (8 slots,
-    the trace's first 8 prompts cut to 64 tokens), row t of one
-    lm_verify_step over [last, d_1..d_4] against lm_decode_step at pos0 + t
-    fed the same tokens, both on the kernel path, on every slot within
-    SPEC_LIMIT of the largest |logit|, over EXACT_DRAWS draws of random
-    draft tokens; a verify whose mask is shifted by one must exceed it.
-    No verify row that clears the spec engine's tie guard (the reference's
-    0.1 sigma) may have another argmax than its decode row."""
+    the trace's first 8 prompts cut to 64 tokens; bf16 or int8 pools), row
+    t of one lm_verify_step over [last, d_1..d_4] against lm_decode_step at
+    pos0 + t fed the same tokens, both on the kernel path, bit for bit on
+    every slot, and the pools each leaves behind (the rows each wrote) bit
+    for bit, over EXACT_DRAWS draws of random draft tokens; a verify whose
+    mask is shifted by one must part.  Each step launches row 2's kernel
+    for every product (`step_products`), the row norm for every norm
+    (`step_norms`) and the rows kernel once a layer (paged decode,
+    verify)."""
     eng = PagedEngine(cfg, params, slots=SLOTS,
                       num_pages=SLOTS * pages_needed(MAX_LEN, PAGE) + 1,
                       page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
                       decode_backend="cuda", ffn_backend="cuda",
-                      device="cuda")
+                      kv_quant=kv_quant, device="cuda")
     for s, p in enumerate(prompts[:SLOTS]):
         eng.admit(s, Request(rid=s, prompt=p[:64], gen=GEN))
         grow = pages_needed(64 + SPEC_K + 2, PAGE) - eng.bt.num_pages(s)
@@ -3299,62 +3703,95 @@ def verify_decode_exactness(cfg, params, prompts) -> None:
     pos0 = torch.as_tensor(eng.written, device="cuda")
     bt = torch.as_tensor(eng.bt.device(), device="cuda")
     c = eng.cfg
+    int8 = "_int8" if kv_quant == "int8" else ""
+    want = {"coarsened_matmul": step_products(cfg),
+            "rmsnorm": step_norms(cfg),
+            "paged_decode_attention" + int8: cfg.n_layers,
+            "verify_attention" + int8: cfg.n_layers}
 
     def fresh():
         return {"layers": [{k: v.clone() for k, v in layer.items()}
                            for layer in eng.cache["layers"]]}
-    decs, vers = [], []
+
+    def launches(run, what):
+        zero_counts()
+        out = run()
+        got = {k: v for k, v in read_counts().items() if v}
+        need = {k: v for k, v in want.items()
+                if k in ("coarsened_matmul", "rmsnorm") or k.startswith(what)}
+        if got != need:
+            raise SystemExit(f"one {what} step launched {got}, not {need}")
+        return out
+
+    parted_rows = parted_pools = 0
+    rows_seen = 0
     for draw in range(EXACT_DRAWS):
         toks = np.concatenate([eng.last[:, None], rng.integers(
             1, cfg.vocab, (SLOTS, SPEC_K))], axis=1)
         toks = torch.as_tensor(toks, dtype=torch.int32, device="cuda")
-        cache = fresh()
+        dcache, vcache = fresh(), fresh()
         rows = []
         for t in range(SPEC_K + 1):
-            lg, _ = M.lm_decode_step(params, cache, toks[:, t:t + 1],
-                                     pos0 + t, c, block_table=bt)
+            step = functools.partial(M.lm_decode_step, params, dcache,
+                                     toks[:, t:t + 1], pos0 + t, c,
+                                     block_table=bt)
+            lg, _ = launches(step, "paged_decode") if draw == t == 0 \
+                else step()
             rows.append(lg)
-        decs.append(torch.stack(rows, dim=1))
-        vers.append(M.lm_verify_step(params, fresh(), toks, pos0, c,
-                                     block_table=bt)[0])
+        dec = torch.stack(rows, dim=1)
+        verify = functools.partial(M.lm_verify_step, params, vcache, toks,
+                                   pos0, c, block_table=bt)
+        ver, _ = launches(verify, "verify") if draw == 0 else verify()
+        parted_rows += sum(not torch.equal(ver[s, t], dec[s, t])
+                           for s in range(SLOTS) for t in range(SPEC_K + 1))
+        rows_seen += SLOTS * (SPEC_K + 1)
+        parted_pools += sum(not torch.equal(a[name], b[name])
+                            for a, b in zip(dcache["layers"],
+                                            vcache["layers"]) for name in a)
         if draw == 0:
             with shifted_verify_mask():
                 bad, _ = M.lm_verify_step(params, fresh(), toks, pos0, c,
                                           block_table=bt)
-            fault_dec = decs[0]
+            fault = sum(not torch.equal(bad[s, t], dec[s, t])
+                        for s in range(SLOTS) for t in range(SPEC_K + 1))
+            clear = int(clears_tie_guard(ver, 0.1).sum())
     torch.cuda.synchronize()
-    dec, ver = torch.cat(decs), torch.cat(vers)      # (draws*slots, T, V)
-    scale = dec.abs().max().item()
-    tol = SPEC_LIMIT * scale
-    diff = (ver - dec).abs().amax(dim=(1, 2))          # per draw and slot
-    fault = (bad - fault_dec).abs().max().item() / tol
-    other = ver.argmax(-1) != dec.argmax(-1)
-    # a verify row the tie guard lets through must have its decode row's
-    # argmax; the rows under it are voided and rescued by a decode step
-    row_div = ((ver - dec).abs().amax(-1)
-               / dec.abs().amax(-1)).max().item()
-    clear = clears_tie_guard(ver, 0.1)
-    print(f"verify vs decode (full width, {EXACT_DRAWS} draws x 8 slots x "
-          f"{SPEC_K + 1} rows, kernel path): max|verify-decode| per draw "
-          f"and slot / limit {[round(x / tol, 3) for x in diff.tolist()]} "
-          f"(limit {tol:.4e} = {SPEC_LIMIT} of max|logit| {scale:.4e}); "
-          f"argmax differs on {int(other.sum())} of {other.numel()} rows; "
-          f"fault model (row t's mask shifted by one) / limit {fault:.2f}; "
-          f"largest row divergence {row_div:.4f} of the row's max|logit|; "
-          f"{int(clear.sum())} rows clear the tie guard (0.1 sigma), "
-          f"{int((clear & other).sum())} of them with another argmax than "
-          f"decode's", flush=True)
-    if (clear & other).any():
-        raise SystemExit("a verify row that clears the tie guard has "
-                         "another argmax than its decode row")
-    if not (torch.isfinite(diff).all() and diff.max().item() <= tol):
-        raise SystemExit("verify rows disagree with decode steps")
-    if not fault > 1:
-        raise SystemExit("the verify-vs-decode limit would not catch a "
+    tag = "int8" if kv_quant == "int8" else "bf16"
+    print(f"verify vs decode ({tag} pools, full width, {EXACT_DRAWS} draws "
+          f"x {SLOTS} slots x {SPEC_K + 1} rows, kernel path): {parted_rows}"
+          f" of {rows_seen} verify rows part from their decode rows; "
+          f"{parted_pools} of {EXACT_DRAWS * len(dcache['layers']) * len(dcache['layers'][0])}"
+          f" pools part after the two passes; fault model (row t's mask "
+          f"shifted by one): {fault} of {SLOTS * (SPEC_K + 1)} rows part; "
+          f"{clear} of {SLOTS * (SPEC_K + 1)} rows of draw 0 clear the tie "
+          f"guard (0.1 sigma); launches of one step: {want}", flush=True)
+    if parted_rows or parted_pools:
+        raise SystemExit("verify rows or the cache rows they wrote are not "
+                         "bit-equal to the decode steps'")
+    if not fault:
+        raise SystemExit("the verify-vs-decode check would not catch a "
                          "shifted mask")
-    del eng, decs, vers, dec, ver, bad
+    del eng, dcache, vcache, bad
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def paged_tokens(cfg, params, prompts, num_pages, kv_quant: str) -> tuple:
+    """The spec trace through `Scheduler` over `PagedEngine` on the kernel
+    path (bf16 or int8 pools): (outputs, preemptions per request)."""
+    eng = PagedEngine(cfg, params, slots=SLOTS, num_pages=num_pages,
+                      page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
+                      decode_block=BLOCK, decode_backend="cuda",
+                      ffn_backend="cuda", kv_quant=kv_quant, device="cuda")
+    sched = Scheduler(eng)
+    for p in prompts:
+        sched.submit(p, SPEC_GEN)
+    done = sched.run_until_done()
+    out = [r.output for r in done], [r.preemptions for r in done]
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def spec_serve_phase() -> dict:
@@ -3364,49 +3801,42 @@ def spec_serve_phase() -> dict:
     num_pages = int(0.6 * need) + 1
     print(f"spec pool: {num_pages} pages of {PAGE} (the {SPEC_REQ} requests "
           f"need {need} at completion)", flush=True)
-    verify_decode_exactness(cfg, params, prompts)
+    for kv_quant in ("none", "int8"):
+        verify_decode_exactness(cfg, params, prompts, kv_quant)
     totals = dict.fromkeys(COUNTERS, 0)
     outs = {}
     for draft, kw in (("draft_of", {}), ("self", {}),
                       ("draft_of", {"tie_tau": math.inf}),
                       ("draft_of", {"kv_quant": "int8"})):
-        counts, outs[draft, tuple(kw)] = spec_serve(
+        counts, *outs[draft, tuple(kw)] = spec_serve(
             cfg, params, prompts, num_pages, draft, **kw)
         for k, v in counts.items():
             totals[k] += v
-    # Greedy tokens against the non-speculative kernel path.  Held where
-    # every verify row is voided (each token then comes from the rescue
-    # decode step, which writes its cache row as PagedEngine does): the
-    # accept, rollback, rescue and paging machinery must be exact.
-    # Reported where verify rows emit: the rows the verify pass writes
-    # into the cache round otherwise than decode steps write them (T*8
-    # against 8 rows in every product), and later decode steps, rescue
-    # included, read them, so near-ties of random weights may flip.
-    eng = PagedEngine(cfg, params, slots=SLOTS, num_pages=num_pages,
-                      page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
-                      decode_block=BLOCK, decode_backend="cuda",
-                      ffn_backend="cuda", device="cuda")
-    sched = Scheduler(eng)
-    for p in prompts:
-        sched.submit(p, SPEC_GEN)
-    base = [r.output for r in sched.run_until_done()]
-    for (draft, kw), out in outs.items():
+    # Greedy tokens against the non-speculative kernel path on pools of the
+    # same kind, held on every request of every run: verify rows and the
+    # cache rows they write are bit-equal to decode steps' (the
+    # verify-vs-decode check above), so the accept, rollback, rescue and
+    # paging machinery must give PagedEngine's tokens.
+    base = {kq: paged_tokens(cfg, params, prompts, num_pages, kq)
+            for kq in ("none", "int8")}
+    parted = []
+    for (draft, kw), (out, npre) in outs.items():
+        ref_out, ref_npre = base["int8" if "kv_quant" in kw else "none"]
         agree = [next((i for i, (a, b) in enumerate(zip(o, r)) if a != b),
-                      SPEC_GEN) for o, r in zip(out, base)]
-        voided = "tie_tau" in kw
+                      SPEC_GEN) for o, r in zip(out, ref_out)]
         tag = draft + {(): "", ("tie_tau",): ", every row voided",
-                       ("kv_quant",): ", int8 KV pools (against bf16 "
+                       ("kv_quant",): ", int8 KV pools (against int8 "
                                       "pools)"}[kw]
         print(f"greedy tokens, spec ({tag}) vs PagedEngine kernel path: "
               f"{sum(a == SPEC_GEN for a in agree)}/{SPEC_REQ} requests "
-              f"identical; first divergence per request {agree}",
+              f"identical; first divergence per request {agree}; "
+              f"preemptions per request {npre} (PagedEngine {ref_npre})",
               flush=True)
-        if voided and any(a != SPEC_GEN for a in agree):
-            raise SystemExit(f"spec ({tag}) tokens differ from the "
-                             f"PagedEngine run's")
-    del eng, sched
-    gc.collect()
-    torch.cuda.empty_cache()
+        if any(a != SPEC_GEN for a in agree):
+            parted.append(tag)
+    if parted:
+        raise SystemExit(f"spec tokens differ from the PagedEngine run's: "
+                         f"{parted}")
     return totals
 
 
@@ -3614,8 +4044,8 @@ def tuned_serve_phase() -> dict:
     try:
         zero_counts()
         with filed_keys(filed):
-            done, npre, steps = serve(cfg, params, prompts, num_pages,
-                                      "cuda", tune="exhaustive")
+            done, npre, steps, _ = serve(cfg, params, prompts, num_pages,
+                                         "cuda", tune="exhaustive")
         counts = read_counts()
         print(f"  kernel launches on the tuned served path: "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
@@ -3947,6 +4377,7 @@ def _leaves(tree):
 
 # the phases after the build, in order: name -> (function, phases it reads)
 PHASES = {"kernels": (None, ()),
+          "invariance": (invariance_phase, ()),
           "tune": (tune_phase, ()),
           "serve": (serve_phase, ()),
           "contig": (contig_serve_phase, ()),
@@ -4026,7 +4457,8 @@ def main(argv=None) -> None:
     if "kernels" in phases:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         t_kernels = time.perf_counter()
-        kernels = [decode_phase(gen), matmul_phase(gen), *flash_phase(gen)]
+        kernels = [decode_phase(gen), matmul_phase(gen), rmsnorm_phase(gen),
+                   *flash_phase(gen)]
         d256 = flash256_phase(gen)
         flash_geometry_phase(gen)
         flash_bwd_geometry_phase(gen)

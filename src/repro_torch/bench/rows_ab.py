@@ -1,21 +1,22 @@
-"""Rows 3-4 (the contiguous decode and verify kernels) of this checkout
-against another checkout's, on the card, in turns on the same inputs: the
-other, this, this, the other, each in a process of its own that builds its
-own tree's library.  With ``--cuts`` the other checkout's kernel is timed
-again once for each part in `CUTS` cut out of its source (the design of
-``csrc/decode_attention.cu`` before the rows kernel was rewritten: which
-part holds its time); with ``--cuts-this`` this checkout's, for each part
-in `CUTS_THIS`.
+"""Rows 1, 3 and 4 (paged decode, contiguous decode, verify) of this
+checkout against another checkout's, on the card, in turns on the same
+inputs: the other, this, this, the other, each in a process of its own
+that builds its own tree's library.  With ``--cuts-this`` this checkout's
+kernel is timed again once for each part in `CUTS_THIS` cut out of its
+source (which part holds its time).
 
-  python -m repro_torch.bench.rows_ab --other DIR [--cuts] [--cuts-this]
+  python -m repro_torch.bench.rows_ab --other DIR [--cuts-this]
 
 ``DIR`` is a checkout (say an unpacked ``git archive`` of the parent commit
 under ``build/``).  Shapes are `chip_smoke.py`'s kernels phase: qwen3-0.6b
 (B 8, 16/8 heads, D 128), contiguous decode at S 1024 and bkv 128 with one
-slot at S + 6, verify at T 5 through a 64-page table of 16-row pages;
-label base.  A row is ``<tree> <kernel>,ms,host_us``: the median device
-time of one call with L2 flushed (`common.time_ms`) and the host time of
-one call's enqueue.  A cut-out's output is wrong by design: only its time
+slot at S + 6, verify at T 5 through a 64-page table of 16-row pages,
+paged decode (T 1) through the same table; label base; bf16 and int8;
+then paged decode on int8 pools at qwen2-moe's shape (`chip_smoke.py`
+`DEC8`: 16/16 heads, 32 pages of 16 a slot, positions 64-286).  A
+row is ``<tree> <kernel>,ms,host_us``: the median device time of one call
+with L2 flushed (`common.time_ms`) and the host time of one call's
+enqueue.  A cut-out's output is wrong by design: only its time
 is read.
 """
 from __future__ import annotations
@@ -29,36 +30,8 @@ import tempfile
 import time
 from pathlib import Path
 
-# (name, [(first text, last text)]): each span, both ends included, is cut
-# out of the old `rows_partials_kernel` / `launch_rows`
-CUTS = {
-    "loads": [
-        ("      for (int i = tid; i < n_vec; i += blockDim.x) {\n"
-         "        const int r = i / vec_per_row, cc = i - r * vec_per_row;\n"
-         "        const size_t off = ((rbase + r)",
-         "            *reinterpret_cast<const uint4*>(v + off);\n      }\n"),
-        ("      if (QUANT && tid < tr) {\n",
-         "        vss[tid] = v_scale[so];\n      }\n")],
-    "scores": [("      for (int idx = warp; idx < rr * tr; idx += nwarps) {",
-                "          sc[r * tr + kr] = ok ? s * scale : NEG;\n"
-                "        }\n      }\n")],
-    "softmax": [("      if (tid < rr) {\n        const int r = tid;",
-                 "        al[r] = alpha;\n      }\n")],
-    "pv": [("      for (int kr = 0; kr < tr; ++kr) {\n"
-            "        const float vv = kv_float(vs[kr * d + tid]);",
-            "          if (r < rr) acc[r] += sc[r * tr + kr] * vv;\n"
-            "      }\n")],
-    "partials": [
-        ("  for (int r = 0; r < MAXR; ++r) {\n    if (r >= rr) continue;\n",
-         "    acc_out[o * d + tid] = acc[r];\n  }\n"),
-        ("    for (int r = 0; r < rr; ++r) {\n"
-         "      const size_t o = part0 + (size_t)r * n_splits;",
-         "      acc_out[o * d + tid] = 0.f;\n    }\n")],
-    "combine": [("  combine_kernel<<<b * hkv * rr, d, 0, st>>>(",
-                 "      n_splits, d, t, g, hkv);\n")],
-}
-# the same for this checkout's `rows_kernel` (a third text, where given,
-# takes the span's place)
+# (name, [(first text, last text[, replacement])]): each span of this
+# checkout's `rows_kernel`, both ends included, is cut out (or replaced)
 CUTS_THIS = {
     "all but the live test": [
         ("  // the split's tiles in walk order",
@@ -79,7 +52,6 @@ CUTS_THIS = {
     "merge": [("  // The last block merges the live splits in split order",
                "  for (int r = tid; r < R; r += blockDim.x) mxs[r] = 0u;\n")],
 }
-KERNELS = ("contig bf16", "contig int8", "verify bf16", "verify int8")
 
 
 def cut(src: str, spans) -> str:
@@ -106,7 +78,7 @@ def child(root: Path, csrc: Path | None, build: Path | None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, h, hkv, d = 8, 16, 8, 128
 
-    def kv(n, ps, dead, quant):
+    def kv(n, ps, dead, quant, hkv=hkv):
         k, v = (torch.randn(n, ps, hkv, d, generator=gen, device="cuda")
                 for _ in range(2))
         if not quant:
@@ -145,6 +117,23 @@ def child(root: Path, csrc: Path | None, build: Path | None) -> None:
         calls[f"verify {'int8' if quant else 'bf16'}"] = (
             lambda k=k, v=v, sc=sc: dec.verify_attention(qt, k, v, bt, pos0,
                                                          **sc))
+        calls[f"paged {'int8' if quant else 'bf16'}"] = (
+            lambda k=k, v=v, sc=sc: dec.paged_decode_attention(
+                q1, k, v, bt, pos0, **sc))
+    # qwen2-moe's int8 pools: G 1, the serve phase's short slots
+    npp8 = 32
+    n8 = b * npp8 + 5
+    perm = torch.randperm(n8 - 1, generator=gen, device="cuda")[:b * npp8]
+    bt8 = (perm + 1).reshape(b, npp8).to(torch.int32)
+    pos8 = torch.randint(64, 287, (b,), generator=gen, device="cuda")
+    rows = torch.arange(npp8 * ps, device="cuda")
+    dead8 = torch.ones(n8, ps, dtype=torch.bool, device="cuda")
+    dead8[bt8.long()[:, rows // ps], (rows % ps).expand(b, -1)] = \
+        rows[None, :] > pos8[:, None]
+    pos8 = pos8.to(torch.int32)
+    k8, v8, sc8 = kv(n8, ps, dead8, True, hkv=h)
+    calls["paged int8 qwen2-moe"] = (
+        lambda: dec.paged_decode_attention(q1, k8, v8, bt8, pos8, **sc8))
     out = {}
     for name, fn in calls.items():
         ms = time_ms(fn)
@@ -174,7 +163,6 @@ def run(root: Path, csrc: Path | None = None, build: Path | None = None):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path)
-    ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--cuts-this", action="store_true")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--csrc", type=Path, help=argparse.SUPPRESS)
@@ -195,21 +183,19 @@ def main(argv=None) -> None:
     for tag, root in turns:
         for name, (ms, us) in run(root).items():
             print(f"{tag} {name},{ms:.4f},{us:.1f}", flush=True)
-    for tag, root, cuts, on in (("other", other, CUTS, args.cuts),
-                                ("this", here, CUTS_THIS, args.cuts_this)):
-        if not on:
-            continue
-        src = (root / "src/repro_torch/kernels/csrc/decode_attention.cu"
-               ).read_text()
-        for name, spans in cuts.items():
-            with tempfile.TemporaryDirectory() as tmp:
-                csrc = Path(tmp) / "csrc"
-                shutil.copytree(root / "src/repro_torch/kernels/csrc", csrc)
-                (csrc / "decode_attention.cu").write_text(cut(src, spans))
-                for kname, (ms, us) in run(root, csrc,
-                                           Path(tmp) / "build").items():
-                    print(f"{tag} without {name} {kname},{ms:.4f},{us:.1f}",
-                          flush=True)
+    if not args.cuts_this:
+        return
+    src = (here / "src/repro_torch/kernels/csrc/decode_attention.cu"
+           ).read_text()
+    for name, spans in CUTS_THIS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            csrc = Path(tmp) / "csrc"
+            shutil.copytree(here / "src/repro_torch/kernels/csrc", csrc)
+            (csrc / "decode_attention.cu").write_text(cut(src, spans))
+            for kname, (ms, us) in run(here, csrc,
+                                       Path(tmp) / "build").items():
+                print(f"this without {name} {kname},{ms:.4f},{us:.1f}",
+                      flush=True)
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "matmul", "flash_attention",
            "sparse_attention", "moe_ffn", "quant_matmul", "stream",
            "stencil", "chunk_scan", "embed_gather", "ssd", "rglru",
-           "windowed_gather")
+           "windowed_gather", "rmsnorm")
 MAX_SMEM = 227 * 1024               # dynamic shared memory a block may use
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,13 +41,11 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, ints as c_int
 SIGNATURES = {
     "decode_attention": {
-        "paged_decode_attention_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
-        "paged_decode_attention_int8": [_P] * 11 + [_I] * 10 + [_F, _P],
         "split_kv_attention": [_P] * 10 + [_I] * 16 + [_F, _P],
         "split_kv_instance": [_I, _P, _I, _P, _P],
     },
     "matmul": {
-        "coarsened_matmul_bf16": [_P] * 3 + [_I] * 7 + [_P],
+        "coarsened_matmul_bf16": [_P] * 3 + [_I] * 9 + [_P],
         "coarsened_matmul_instance": [_I, _P, _I, _P, _P],
     },
     "flash_attention": {
@@ -89,6 +87,9 @@ SIGNATURES = {
     },
     "windowed_gather": {
         "windowed_gather_f32": [_P] * 4 + [_I] * 8 + [_P],
+    },
+    "rmsnorm": {
+        "rmsnorm_bf16": [_P] * 3 + [_I] * 2 + [_F, _P],
     },
 }
 

@@ -58,12 +58,24 @@
 // * The K tail.  K % 64 may be 32: the last stage's boxes reach past K and
 //   TMA fills those elements with zeros in both operands, so the tail adds
 //   exact zeros; the stage's mbarrier still counts the full box bytes.
+// * Ragged M and N at base (C = 1, VW = 1), for the products of the decode
+//   and verify steps (`kernels/matmul.py` `step_matmul`): M need not tile
+//   by 64 nor N by 64 (N % 8 == 0).  The last tiles' boxes reach past the
+//   operands and TMA fills them with zeros, so every stored element is the
+//   same sum a whole tile gives it; the rows and columns past M and N are
+//   not stored.  A row's sum depends on its own A row alone: its bits do
+//   not depend on the other rows, their count or its place in the tile.
+// * A K-major weight (KB): the transpose of a contiguous (N, K) tensor (a
+//   tied embedding read as the head), staged as 64 rows of 128 bytes a
+//   stage like A and read as wgmma's K-major B (`desc`), base only.
 //
 // Fragment layouts (PTX ISA): a wgmma accumulator of m64nN holds, in
 // register 4j + e of lane 4g + t of warp w, row 16w + g (e = 0, 1) or
 // 16w + g + 8 (e = 2, 3) and column 8j + 2t + (e & 1).  The mbarrier, TMA,
 // descriptor and wgmma helpers are `hopper.cuh`'s (shared with rows 5-7
 // and 10).
+#include <atomic>
+
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -117,14 +129,42 @@ struct Shape {
 };
 
 struct Params {
-  float* out;                        // (M, N)
+  void* out;                         // (M, N), f32 or (bf16) bf16
   int m, n, gapped;
   int steps;                         // ceil(K / KSTEP)
+  int bf16;                          // round the sums to bf16 on the store
 };
 
+// whether row r and column col of the output exist (the last tiles of a
+// ragged M or N reach past them)
+__device__ __forceinline__ bool stored(const Params& p, int r, int col) {
+  return r < p.m && col < p.n;
+}
+
+// store NV (2 or 4) sums at element e of the output, f32 or rounded to
+// bf16 (to nearest even, as a cast of the f32 result)
+template <int NV>
+__device__ __forceinline__ void store(const Params& p, size_t e,
+                                      const float (&v)[NV]) {
+  if (p.bf16) {
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+        static_cast<__nv_bfloat16*>(p.out) + e);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i)
+      o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  } else if constexpr (NV == 2) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + e) =
+        make_float2(v[0], v[1]);
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(p.out) + e) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 // ta: the activation (M, K), box 64 x (C*64 consecutive, 64 gapped); tb:
-// the weight (K, N), box 64 x 64; both 128-byte swizzled
-template <int C, int VW>
+// the weight (K, N), box 64 x 64 (KB: (N, K), box 64 x 64 along K); both
+// 128-byte swizzled
+template <int C, int VW, bool KB = false>
 __global__ void __launch_bounds__(Shape<C, VW>::THREADS, 1)
 cmm_kernel(const __grid_constant__ CUtensorMap ta,
            const __grid_constant__ CUtensorMap tb, const Params p) {
@@ -172,8 +212,12 @@ cmm_kernel(const __grid_constant__ CUtensorMap ta,
           tma_2d(sa, &ta, kk, grow(0), bar);   // one box of C*64 rows
         }
 #pragma unroll
-        for (int v = 0; v < VW; ++v)
-          tma_2d(sb + v * KSTEP * 128, &tb, n0 + v * BOX_N, kk, bar);
+        for (int v = 0; v < VW; ++v) {
+          if (KB)
+            tma_2d(sb + v * BOX_N * 128, &tb, kk, n0 + v * BOX_N, bar);
+          else
+            tma_2d(sb + v * KSTEP * 128, &tb, n0 + v * BOX_N, kk, bar);
+        }
       }
     }
   } else {
@@ -191,12 +235,15 @@ cmm_kernel(const __grid_constant__ CUtensorMap ta,
       wg_fence();
       // k16 steps: 32 bytes along A's rows, 16 rows (2 KB) down the
       // weight's boxes, whose 64-column chunks lie KSTEP*128 bytes apart
+      // (KB: 32 bytes along the weight's rows, as along A's)
 #pragma unroll
       for (int ks = 0; ks < KSTEP / 16; ++ks) {
-        const uint64_t bd = desc_mn(sb + ks * 2048, KSTEP * 128);
+        const uint64_t bd = KB ? desc(sb + ks * 32)
+                               : desc_mn(sb + ks * 2048, KSTEP * 128);
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          wgmma_ss<N, 1>(acc[c], desc(sa + c * BM * 128 + ks * 32), bd, 1);
+          wgmma_ss<N, KB ? 0 : 1>(acc[c], desc(sa + c * BM * 128 + ks * 32),
+                                  bd, 1);
       }
       wg_commit();
       wg_wait<1>();                      // the stage before is read
@@ -214,15 +261,15 @@ cmm_kernel(const __grid_constant__ CUtensorMap ta,
     if (warp < 4) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        float* o0 = p.out + (size_t)(grow(c) + warp * 16 + g) * p.n + n0 +
-                    2 * t;
-        float* o1 = o0 + (size_t)8 * p.n;
+        const int r0 = grow(c) + warp * 16 + g;
 #pragma unroll
         for (int j = 0; j < N / 8; ++j) {
-          *reinterpret_cast<float2*>(o0 + 8 * j) =
-              make_float2(acc[c][4 * j], acc[c][4 * j + 1]);
-          *reinterpret_cast<float2*>(o1 + 8 * j) =
-              make_float2(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+          const int col = n0 + 8 * j + 2 * t;
+          const float lo[2] = {acc[c][4 * j], acc[c][4 * j + 1]};
+          const float hi[2] = {acc[c][4 * j + 2], acc[c][4 * j + 3]};
+          if (stored(p, r0, col)) store(p, (size_t)r0 * p.n + col, lo);
+          if (stored(p, r0 + 8, col))
+            store(p, (size_t)(r0 + 8) * p.n + col, hi);
         }
       }
     }
@@ -266,8 +313,11 @@ cmm_kernel(const __grid_constant__ CUtensorMap ta,
         v.z += x.z;
         v.w += x.w;
       }
-      *reinterpret_cast<float4*>(
-          p.out + (size_t)(grow(r / BM) + r % BM) * p.n + n0 + col) = v;
+      const int row = grow(r / BM) + r % BM;
+      if (stored(p, row, n0 + col)) {
+        const float sums[4] = {v.x, v.y, v.z, v.w};
+        store(p, (size_t)row * p.n + n0 + col, sums);
+      }
     }
   }
   // no block leaves while it is read: the readers arrive once their loads
@@ -276,9 +326,9 @@ cmm_kernel(const __grid_constant__ CUtensorMap ta,
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-template <int C, int VW>
+template <int C, int VW, bool KB = false>
 int launch(const void* a, const void* b, void* o, int m, int n, int k,
-           int gapped, int splits, cudaStream_t st) {
+           int gapped, int splits, int bf16, cudaStream_t st) {
   using SH = Shape<C, VW>;
   const bool wide = C > 1 && !gapped;   // one box of the program's rows
   CUtensorMap ta, tb;
@@ -286,23 +336,38 @@ int launch(const void* a, const void* b, void* o, int m, int n, int k,
                     (uint64_t)k * 2, KSTEP, wide ? SH::ROWS : BM,
                     CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc == 0)
-    rc = make_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n, k,
-                  (uint64_t)n * 2, BOX_N, KSTEP, CU_TENSOR_MAP_SWIZZLE_128B);
+    rc = KB ? make_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, k, n,
+                       (uint64_t)k * 2, KSTEP, BOX_N,
+                       CU_TENSOR_MAP_SWIZZLE_128B)
+            : make_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n, k,
+                       (uint64_t)n * 2, BOX_N, KSTEP,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc != 0) return rc;
-  auto kern = cmm_kernel<C, VW>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SH::SMEM);
-  if (e == cudaSuccess)                // the ring needs most of the SM's
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && splits > 8)
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  auto kern = cmm_kernel<C, VW, KB>;
+  // the instance's attributes, once a device (a decode step makes ~200
+  // calls: their host time counts)
+  static std::atomic<unsigned> ready{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  Params p{static_cast<float*>(o), m, n, gapped, (k + KSTEP - 1) / KSTEP};
+  if (!(ready.load() >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SH::SMEM);
+    if (e == cudaSuccess)              // the ring needs most of the SM's
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(1u << dev);
+  }
+  Params p{o, m, n, gapped, (k + KSTEP - 1) / KSTEP, bf16};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, n / SH::N, m / SH::ROWS);
+  cfg.gridDim = dim3(splits, (n + SH::N - 1) / SH::N,
+                     (m + SH::ROWS - 1) / SH::ROWS);
   cfg.blockDim = dim3(SH::THREADS);
   cfg.dynamicSmemBytes = SH::SMEM;
   cfg.stream = st;
@@ -324,30 +389,48 @@ struct Instance {
   const char* name;
   const void* fn;
 };
-#define CMI(C_, VW_) {"cmm_kernel<" #C_ ", " #VW_ ">", (const void*)cmm_kernel<C_, VW_>}
-const Instance kInstances[] = {CMI(1, 1), CMI(1, 2), CMI(1, 4),
-                               CMI(2, 1), CMI(2, 2), CMI(4, 1)};
+#define CMI(C_, VW_, KB_)                                       \
+  {"cmm_kernel<" #C_ ", " #VW_ ", " #KB_ ">",                   \
+   (const void*)cmm_kernel<C_, VW_, KB_>}
+const Instance kInstances[] = {
+    CMI(1, 1, false), CMI(1, 2, false), CMI(1, 4, false), CMI(2, 1, false),
+    CMI(2, 2, false), CMI(4, 1, false), CMI(1, 1, true)};
 #undef CMI
 
 }  // namespace
 
-// splits: the wrapper's K split (`kernels/matmul.py` `mm_split_plan`)
+// splits: the wrapper's K split (`kernels/matmul.py` `mm_split_plan`,
+// `step_plan`); kb: the weight is the transpose of a contiguous (N, K)
+// tensor; out_bf16: o is bf16, the sums rounded on the store (else f32).
+// At c = vw = 1, m is any count of rows and n % 8 == 0 (the ragged tiles'
+// TMA zero fill); otherwise both tile.
 extern "C" int coarsened_matmul_bf16(const void* a, const void* b, void* o,
                                      int m, int n, int k, int c, int vw,
-                                     int gapped, int splits, void* stream) {
-  if (m % (c * BM) || n % (BOX_N * vw) || k % 32 || k < 32)
+                                     int gapped, int kb, int out_bf16,
+                                     int splits, void* stream) {
+  const bool ragged = c == 1 && vw == 1;
+  if (m < 1 || n < 8 || k % 32 || k < 32 ||
+      (ragged ? n % 8 : m % (c * BM) || n % (BOX_N * vw)))
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > MAX_SPLITS ||
-      splits > (k + KSTEP - 1) / KSTEP)
+      splits > (k + KSTEP - 1) / KSTEP || (kb && !ragged))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kb)
+    return launch<1, 1, true>(a, b, o, m, n, k, 0, splits, out_bf16, st);
   switch (c * 10 + vw) {
-    case 11: return launch<1, 1>(a, b, o, m, n, k, gapped, splits, st);
-    case 12: return launch<1, 2>(a, b, o, m, n, k, gapped, splits, st);
-    case 14: return launch<1, 4>(a, b, o, m, n, k, gapped, splits, st);
-    case 21: return launch<2, 1>(a, b, o, m, n, k, gapped, splits, st);
-    case 22: return launch<2, 2>(a, b, o, m, n, k, gapped, splits, st);
-    case 41: return launch<4, 1>(a, b, o, m, n, k, gapped, splits, st);
+    case 11:
+      return launch<1, 1>(a, b, o, m, n, k, gapped, splits, out_bf16, st);
+    case 12:
+      return launch<1, 2>(a, b, o, m, n, k, gapped, splits, out_bf16, st);
+    case 14:
+      return launch<1, 4>(a, b, o, m, n, k, gapped, splits, out_bf16, st);
+    case 21:
+      return launch<2, 1>(a, b, o, m, n, k, gapped, splits, out_bf16, st);
+    case 22:
+      return launch<2, 2>(a, b, o, m, n, k, gapped, splits, out_bf16, st);
+    case 41:
+      return launch<4, 1>(a, b, o, m, n, k, gapped, splits, out_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

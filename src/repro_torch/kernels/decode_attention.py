@@ -1,34 +1,31 @@
-"""Split-KV decode attention: the wrappers of the CUDA kernels in
-``csrc/decode_attention.cu``.  `paged_decode_attention` replaces
-`repro/kernels/decode_attention.py` `make_paged_kernel`; `decode_attention`
-replaces `make_kernel` (a contiguous (B,S,Hkv,D) cache) and
-`verify_attention` replaces `make_verify_kernel` (T drafted query rows per
-slot through the block table).  The paged kernel runs the exact combine
-`_combine` as a second small kernel; the rows kernel runs it in the same
-launch.
+"""Split-KV decode attention: the wrappers of the CUDA kernel in
+``csrc/decode_attention.cu``.  One kernel, `rows_kernel`, replaces three
+Pallas kernels of `repro/kernels/decode_attention.py`: `make_paged_kernel`
+(`paged_decode_attention`: one query row a slot through the block table),
+`make_kernel` (`decode_attention`: a contiguous (B,S,Hkv,D) cache) and
+`make_verify_kernel` (`verify_attention`: T drafted query rows a slot
+through the block table).  Paged decode is verify's call at T = 1 with
+``pos0 = pos``, so a decode row and a verify row at the same position
+take one walk and one order of every sum: the same bits.
 
-One thread block per (slot, kv head, split) owns C logical pages of the
-slot's block table, adjacent (consecutive) or npp/C apart (gapped), streams
-their K/V rows with 16-byte loads and writes an online-softmax partial; a
-split wholly past ``pos`` writes the empty partial without touching the
-pool.  Bound on the H100: the live K/V bytes, 2 * (pos+1) * Hkv * D * 2 per
-slot per layer, at 3.35 TB/s.
+The kernel takes T*G <= 64 query rows a kv head: the splits of a (slot,
+kv head) on up to 16 blocks, each walking its live splits through a ring
+of 2-4 stages of 16 or 32 kv rows filled by cp.async, scores on the tensor
+cores, the online softmax in registers, P.V in float32, and the split
+combine in the same launch (the last block to finish merges the live
+splits' partials in split order; a dead split writes nothing; the longest
+slots run first).  A split owns C segments (pages, or kv blocks of a
+contiguous cache), adjacent (consecutive) or nseg/C apart (gapped).
+`rows_launch` sizes a launch and `rows_program` mirrors its walk in
+Python.  Bound on the H100: the live K/V bytes, 2 * (pos+1) * Hkv * D * 2
+per slot per layer (verify: the rows up to ``pos0 + T - 1``), at 3.35
+TB/s.
 
-int8 pools (``k_scale`` / ``v_scale`` (P,ps,Hkv) f32, the ``kv_bits=8``
-branch of `make_paged_kernel`) launch the kernel's int8 variant: the
-scales are pulled out of the dot, so a split stages half the bytes.  Its
-bound: the live rows' int8 K/V bytes and their scales.
-
-The contiguous and verify kernels are one kernel (`rows_kernel`) over
-T*G <= 64 query rows a block: the splits of a (slot, kv head) on up to 16
-blocks, each walking its live splits through a ring of 2-4 stages of 16 or
-32 kv rows filled by cp.async, scores on the tensor cores, the online
-softmax in registers, P.V in float32, and the split combine in the same
-launch (the last block to finish merges the live splits' partials in split
-order; a dead split writes nothing; the longest slots run first).
-`rows_launch` sizes a launch and `rows_program` mirrors its walk in Python.
-Their bounds are the live K/V bytes too (verify: the rows up to
-``pos0 + T - 1``).
+int8 caches (``k_scale`` / ``v_scale`` f32, one a (row, kv head), the
+``kv_bits=8`` branches of the Pallas kernels) launch the kernel's int8
+instances: K and V are widened to bf16 in shared memory and the scales
+applied beside the products.  Their bound: the live rows' int8 K/V bytes
+and their scales.
 
 On CPU tensors each wrapper computes its plain version
 (`ref.verify_split_kv`, with one row for paged decode, and `ref.split_kv`:
@@ -46,8 +43,6 @@ from repro_torch.core.coarsening import (BASE, KIND_GAPPED, CoarseningConfig,
                                          resolve)
 from repro_torch.kernels import _build, ref
 
-MAX_GROUP = 8                      # query heads per kv head the kernel takes
-
 MAX_ROWS = 64                      # T*G query rows the rows kernel takes
 MAX_ROWS_D = 256                   # head dims: multiples of 32 up to this
 MAX_STAGES = 4                     # ring stages of the rows kernel
@@ -56,22 +51,12 @@ MERGE_SMEM = 48 * 1024             # shared memory a rows block at least
 ROWS_TAB = 1024                    # table entries a rows block reads early
 ROWS_SMEM = _build.MAX_SMEM - 128  # dynamic shared memory a rows block
 
-launches = 0                       # bf16-pool kernel launches since reset
-int8_launches = 0                  # int8-pool kernel launches since reset
+launches = 0                       # paged decode, bf16 pools, since reset
+int8_launches = 0                  # paged decode, int8 pools
 contig_launches = 0                # contiguous bf16-cache launches
 contig_int8_launches = 0           # contiguous int8-cache launches
 verify_launches = 0                # verify, bf16 pools
 verify_int8_launches = 0           # verify, int8 pools
-
-
-def paged_takes(g: int, d: int, ps: int, elem: int) -> bool:
-    """Whether the paged decode kernel takes ``g`` query heads a kv head,
-    head dim ``d`` and pages of ``ps`` rows of ``elem``-byte values (1: an
-    int8 pool); the layer dispatch sends any other geometry to the plain
-    path."""
-    smem = 2 * ps * d * elem + g * d * 4 + g * ps * 4 + 2 * ps * 4
-    return (g <= MAX_GROUP and d % 32 == 0 and d <= 1024
-            and not (elem == 1 and ps > d) and smem <= _build.MAX_SMEM)
 
 
 def rows_tile(seg: int, rr: int) -> int:
@@ -248,91 +233,6 @@ def _scales(k_scale, v_scale, shape):
     return quant
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
-                           cfg: CoarseningConfig | str = BASE, *,
-                           window: int | None = None,
-                           scale: float | None = None,
-                           k_scale=None, v_scale=None) -> torch.Tensor:
-    """q: (B,1,H,D); pools: (P,ps,Hkv,D) shared by every slot; block_table:
-    (B,npp) int32 logical->physical page map; pos: (B,) int32 ->
-    (B,1,H,D) in q's dtype."""
-    global launches, int8_launches
-    cfg = resolve(cfg)
-    b, one, h, d = q.shape
-    n_pages, ps, hkv, d2 = k_pool.shape
-    npp = block_table.shape[1]
-    c = cfg.degree
-    if one != 1 or d2 != d or v_pool.shape != k_pool.shape \
-            or block_table.shape[0] != b or pos.shape != (b,):
-        raise ValueError(
-            f"paged decode shapes: q {tuple(q.shape)}, pools "
-            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
-            f"{tuple(block_table.shape)}, pos {tuple(pos.shape)}")
-    if h % hkv:
-        raise ValueError(f"n_heads {h} not divisible by n_kv_heads {hkv}")
-    if npp % c:
-        raise ValueError(f"slot pages {npp} not tileable by degree {c}")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    quant = _scales(k_scale, v_scale, (n_pages, ps, hkv))
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    gapped = cfg.kind == KIND_GAPPED
-    if q.device.type == "cpu":
-        return ref.verify_split_kv(q, k_pool, v_pool, block_table, pos,
-                                   degree=c, gapped=gapped, window=window,
-                                   scale=scale, k_scale=k_scale,
-                                   v_scale=v_scale)
-
-    dev = q.device
-    operands = [k_pool, v_pool, block_table, pos] + (
-        [k_scale, v_scale] if quant else [])
-    if dev.type != "cuda" or any(t.device != dev for t in operands):
-        raise ValueError("paged decode operands must share one CUDA device")
-    pool_dtype = torch.int8 if quant else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype \
-            or v_pool.dtype != pool_dtype:
-        raise TypeError(f"paged decode kernel takes bf16 q and "
-                        f"{pool_dtype} pools, got {q.dtype}, "
-                        f"{k_pool.dtype}, {v_pool.dtype}")
-    if quant and (k_scale.dtype != torch.float32
-                  or v_scale.dtype != torch.float32):
-        raise TypeError("int8 pools take float32 scale pools")
-    if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("block_table and pos must be int32")
-    if not all(t.is_contiguous() for t in [q] + operands):
-        raise ValueError("paged decode kernel takes contiguous operands")
-    g = h // hkv
-    if not paged_takes(g, d, ps, k_pool.element_size()):
-        raise ValueError(f"paged decode kernel takes G <= {MAX_GROUP}, D a "
-                         f"multiple of 32 up to 1024 (and, for int8 pools, "
-                         f"page rows <= D) and a page that fits in shared "
-                         f"memory ({_build.MAX_SMEM} B), got G={g}, D={d}, "
-                         f"ps={ps}")
-    n_splits = npp // c
-    m = torch.empty((b, hkv, g, n_splits), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b, hkv, g, n_splits, d), dtype=torch.float32,
-                      device=dev)
-    out = torch.empty_like(q)
-    lib = _build.library("decode_attention")
-    tail = (block_table.data_ptr(), pos.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), out.data_ptr(), b, hkv, g, d,
-            n_pages, ps, npp, c, int(gapped), window or 0, float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if quant:
-        rc = lib.paged_decode_attention_int8(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), *tail)
-        _build.check(rc, "paged_decode_attention_int8")
-        int8_launches += 1
-    else:
-        rc = lib.paged_decode_attention_bf16(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *tail)
-        _build.check(rc, "paged_decode_attention_bf16")
-        launches += 1
-    return out
-
-
 _TICKETS: dict[int, torch.Tensor] = {}
 
 
@@ -402,7 +302,7 @@ def _launch_rows(q, k, v, k_scale, v_scale, block_table, pos0, *, paged,
         ws.data_ptr(), _tickets(dev, b * hkv).data_ptr(), out.data_ptr(),
         int(quant), int(paged), b, hkv, g, t, d, n_pages, seg, nseg, c,
         int(gapped), window or 0, ln.stages, ln.blocks, ln.per_block,
-        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        float(scale), torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(rc, f"{what} ({'int8' if quant else 'bf16'})")
     return out
 
@@ -452,16 +352,10 @@ def decode_attention(q, k_cache, v_cache, pos,
     return out
 
 
-def verify_attention(q, k_pool, v_pool, block_table, pos0,
-                     cfg: CoarseningConfig | str = BASE, *,
-                     window: int | None = None, scale: float | None = None,
-                     k_scale=None, v_scale=None) -> torch.Tensor:
-    """q: (B,T,H,D), row t at cache position ``pos0[b] + t``; pools:
-    (P,ps,Hkv,D); block_table: (B,npp) int32; pos0: (B,) int32 ->
-    (B,T,H,D) in q's dtype.  The coarsening axis is the slot's logical
-    page axis, as in `paged_decode_attention`.  ``k_scale`` / ``v_scale``
-    (P,ps,Hkv) f32 mark int8 pools."""
-    global verify_launches, verify_int8_launches
+def _paged(q, k_pool, v_pool, block_table, pos0, cfg, *, window, scale,
+           k_scale, v_scale, what):
+    """Check a paged call of the rows kernel (verify, or paged decode at T
+    = 1) and run it: its plain version on CPU tensors."""
     cfg = resolve(cfg)
     b, t, h, d = q.shape
     n_pages, ps, hkv, d2 = k_pool.shape
@@ -470,16 +364,16 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0,
     if d2 != d or v_pool.shape != k_pool.shape \
             or block_table.shape[0] != b or pos0.shape != (b,):
         raise ValueError(
-            f"verify shapes: q {tuple(q.shape)}, pools "
+            f"{what} shapes: q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
-            f"{tuple(block_table.shape)}, pos0 {tuple(pos0.shape)}")
+            f"{tuple(block_table.shape)}, positions {tuple(pos0.shape)}")
     if h % hkv:
         raise ValueError(f"n_heads {h} not divisible by n_kv_heads {hkv}")
     if npp % c:
         raise ValueError(f"slot pages {npp} not tileable by degree {c}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    quant = _scales(k_scale, v_scale, (n_pages, ps, hkv))
+    _scales(k_scale, v_scale, (n_pages, ps, hkv))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     gapped = cfg.kind == KIND_GAPPED
     if q.device.type == "cpu":
@@ -487,12 +381,53 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0,
                                    degree=c, gapped=gapped, window=window,
                                    scale=scale, k_scale=k_scale,
                                    v_scale=v_scale)
-    out = _launch_rows(q, k_pool, v_pool, k_scale, v_scale, block_table,
-                       pos0, paged=True, t=t, seg=ps, nseg=npp,
-                       n_pages=n_pages, c=c, gapped=gapped, window=window,
-                       scale=scale, what="verify")
-    if quant:
-        verify_int8_launches += 1
-    else:
-        verify_launches += 1
+    return _launch_rows(q, k_pool, v_pool, k_scale, v_scale, block_table,
+                        pos0, paged=True, t=t, seg=ps, nseg=npp,
+                        n_pages=n_pages, c=c, gapped=gapped, window=window,
+                        scale=scale, what=what)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
+                           cfg: CoarseningConfig | str = BASE, *,
+                           window: int | None = None,
+                           scale: float | None = None,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """q: (B,1,H,D); pools: (P,ps,Hkv,D) shared by every slot; block_table:
+    (B,npp) int32 logical->physical page map; pos: (B,) int32 ->
+    (B,1,H,D) in q's dtype: `verify_attention` at T = 1 with ``pos0 =
+    pos`` (each split owns ``cfg.degree`` pages).  ``k_scale`` /
+    ``v_scale`` (P,ps,Hkv) f32 mark int8 pools."""
+    global launches, int8_launches
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"paged decode shapes: q {tuple(q.shape)} is not "
+                         f"(B, 1, H, D)")
+    out = _paged(q, k_pool, v_pool, block_table, pos, cfg, window=window,
+                 scale=scale, k_scale=k_scale, v_scale=v_scale,
+                 what="paged decode")
+    if q.device.type != "cpu":
+        if k_scale is not None:
+            int8_launches += 1
+        else:
+            launches += 1
+    return out
+
+
+def verify_attention(q, k_pool, v_pool, block_table, pos0,
+                     cfg: CoarseningConfig | str = BASE, *,
+                     window: int | None = None, scale: float | None = None,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """q: (B,T,H,D), row t at cache position ``pos0[b] + t``; pools:
+    (P,ps,Hkv,D); block_table: (B,npp) int32; pos0: (B,) int32 ->
+    (B,T,H,D) in q's dtype.  The coarsening axis is the slot's logical
+    page axis: each split owns ``cfg.degree`` pages.  ``k_scale`` /
+    ``v_scale`` (P,ps,Hkv) f32 mark int8 pools."""
+    global verify_launches, verify_int8_launches
+    out = _paged(q, k_pool, v_pool, block_table, pos0, cfg, window=window,
+                 scale=scale, k_scale=k_scale, v_scale=v_scale,
+                 what="verify")
+    if q.device.type != "cpu":
+        if k_scale is not None:
+            verify_int8_launches += 1
+        else:
+            verify_launches += 1
     return out

@@ -24,6 +24,16 @@ Bound: max(2mnk / 989 TFLOP/s, (2mk + packed weight + 4mn) / 3.35 TB/s).
 Both kernels add the slices' partial sums in slice order, so a call gives
 the same bits every time.  `plan_split` is the one planner of both.
 
+The decode and verify steps' products (`step_matmul`) run the coarsened
+kernel at label base with the K split of ONE 64-row tile whatever the row
+count (`step_plan`): every output element is then summed in an order fixed
+by (n, k) alone, and a row's bits do not depend on the other rows, their
+count or the row's place, so a row of a T-row verify pass equals the same
+row of a decode step.  At base the kernel takes any row count and N % 8
+(the last tiles read TMA's zero fill and are not stored, `step_takes`)
+and a K-major weight (the transpose of a contiguous (n, k) tensor, such as
+a tied embedding read as the head), read in place.
+
 On CPU tensors the wrappers compute the plain versions (`ref.matmul`,
 `ref.quant_matmul`); on CUDA tensors they launch the kernel or raise.
 """
@@ -69,6 +79,12 @@ def tileable(m: int, n: int, k: int, cfg: CoarseningConfig) -> bool:
     return (c in (1, 2, 4) and vw in (1, 2, 4)
             and c * vw <= MAX_TILE_PRODUCT
             and m % (c * BM) == 0 and n % (BN * vw) == 0 and k % BK == 0)
+
+
+def step_takes(n: int, k: int) -> bool:
+    """Whether the kernel takes an (m,k) @ (k,n) product at base for any
+    m >= 1: N % 8 (16-byte rows of the weight) and K % 32."""
+    return n >= 8 and n % 8 == 0 and k >= BK and k % BK == 0
 
 
 def quant_ref_tileable(m: int, n: int, k: int, cfg: CoarseningConfig,
@@ -168,6 +184,17 @@ def _mm_plan(m: int, n: int, k: int, c: int, vw: int, sms: int) -> SplitPlan:
                       fill=False)
 
 
+def step_plan(m: int, n: int, k: int, sms: int) -> SplitPlan:
+    """The K split of a decode or verify step's (m,k) @ (k,n) product: the
+    plan `mm_split_plan` makes for ONE 64-row tile (N padded to whole
+    64-column boxes), whatever ``m``, and a grid of ceil(m / 64) row tiles.
+    The splits depend on (n, k) alone, so every row is summed in one order
+    at every row count."""
+    one = _mm_plan(BM, -(-n // BN) * BN, k, 1, 1, sms)
+    return SplitPlan(one.splits, one.unit,
+                     (one.splits, one.grid[1], -(-m // BM)))
+
+
 @dataclasses.dataclass(frozen=True)
 class Box:
     """One TMA copy: columns [x, x + w) of rows [y, y + h) of its tensor
@@ -231,41 +258,64 @@ def instances() -> list[tuple[str, int, int]]:
 
 def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
                      cfg: CoarseningConfig | str = BASE,
-                     plan: SplitPlan | None = None) -> torch.Tensor:
-    """(m,k) @ (k,n) -> (m,n) float32 through the coarsened kernel.
-    ``plan`` overrides `mm_split_plan` (to measure other splits)."""
+                     plan: SplitPlan | None = None, *,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(m,k) @ (k,n) -> (m,n) float32 through the coarsened kernel (bf16
+    with ``out_dtype``: the float32 sums rounded on the store, as a cast of
+    the float32 result).  ``plan`` overrides `mm_split_plan` (to measure
+    other splits, and the steps' `step_plan`).  At base (degree 1, vector
+    width 1) the rows and N need not tile (`step_takes`) and ``b`` may be
+    K-major (the transpose of a contiguous (n, k) tensor)."""
     global launches
     cfg = resolve(cfg)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
-    if not tileable(m, n, k, cfg):
+    ragged = cfg.degree == cfg.vector_width == 1
+    if not (tileable(m, n, k, cfg) or (ragged and step_takes(n, k))):
         raise ValueError(
             f"matmul ({m},{n},{k}) under {cfg.label} is not tileable by the "
             f"kernel: needs degree, vector_width in (1,2,4) with product <= "
             f"{MAX_TILE_PRODUCT}, m % (degree*{BM}), n % ({BN}*vector_width), "
-            f"k % {BK}")
+            f"k % {BK} (at base any m and n % 8)")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"matmul kernel writes float32 or bf16, not "
+                        f"{out_dtype}")
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return ref.matmul(a, b)
+        return ref.matmul(a, b).to(out_dtype)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"matmul operands on {a.device} and {b.device}")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"matmul kernel takes bf16, got {a.dtype}, {b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul kernel takes contiguous operands")
+    kmajor = ragged and not b.is_contiguous() and b.T.is_contiguous()
+    if not (a.is_contiguous() and (b.is_contiguous() or kmajor)):
+        raise ValueError("matmul kernel takes contiguous operands (at base "
+                         "also a transposed contiguous weight)")
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("matmul kernel needs 16-byte aligned operands")
     if plan is None:
         plan = mm_split_plan(m, n, k, cfg, sm_count(a.device))
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     rc = _build.library("matmul").coarsened_matmul_bf16(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, cfg.degree,
-        cfg.vector_width, int(cfg.kind == KIND_GAPPED), plan.splits,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        cfg.vector_width, int(cfg.kind == KIND_GAPPED), int(kmajor),
+        int(out_dtype == torch.bfloat16), plan.splits,
+        torch._C._cuda_getCurrentRawStream(a.device.index))
     _build.check(rc, "coarsened_matmul_bf16")
     launches += 1
     return out
+
+
+def step_matmul(a: torch.Tensor, b: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(m,k) @ (k,n) -> (m,n) for a decode or verify step: the coarsened
+    kernel at base under `step_plan`, so each row's bits depend on that
+    row alone (on CPU tensors, the plain float32 product), float32 or
+    rounded to ``out_dtype`` on the store."""
+    plan = None if a.device.type == "cpu" else step_plan(
+        a.shape[0], b.shape[1], a.shape[1], sm_count(a.device))
+    return coarsened_matmul(a, b, BASE, plan, out_dtype=out_dtype)
 
 
 def quant_matmul(a: torch.Tensor, qw: QTensor,

@@ -236,9 +236,14 @@ def dp_scan(cost, cfg: CoarseningConfig | str = BASE):
 def matmul(a, b, cfg: CoarseningConfig | str = BASE):
     """(m,k) @ (k,n) -> (m,n) float32 through the coarsened blocked kernel."""
     _check_no_grad("ops.matmul", a, b)
-    cfg = resolve_cfg(cfg, "matmul", (a.shape[0], b.shape[-1], a.shape[-1]),
-                      dtype=dtype_name(a), backend=backend_of(a),
-                      **MATMUL_BLOCKS)
+    m, k, n = a.shape[0], a.shape[-1], b.shape[-1]
+    cfg = resolve_cfg(cfg, "matmul", (m, n, k), dtype=dtype_name(a),
+                      backend=backend_of(a), **MATMUL_BLOCKS)
+    if not _matmul.tileable(m, n, k, cfg):
+        # the kernel's whole-tile rule (its base-only ragged tiles serve
+        # the decode and verify steps, `matmul.step_matmul`)
+        raise ValueError(f"matmul ({m},{n},{k}) under {cfg.label} is not "
+                         f"tileable by the kernel")
     return _matmul.coarsened_matmul(a, b, cfg)
 
 

@@ -19,6 +19,17 @@ from repro_torch.quant.qtypes import QTensor, dequantize
 NEG = -1e30
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """`repro/models/layers.py:87`: float32 statistics, scale applied as
+    (1 + scale), result in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(m,k) @ (k,n) in float32 (`repro/kernels/ref.py:44`)."""
     return torch.matmul(a.float(), b.float())

@@ -35,6 +35,11 @@ back, so the write stays one in-place scatter with no host sync.
 The serving blocks run MoE layers (`layers.moe`, with the reference's
 capacities); the whole-sequence training block does not yet (MoE training
 is not ported) and raises for them.
+
+The decode and verify blocks run their dense products and norms as a
+step (`layers.step_kernel`): under a kernel ``ffn_backend`` on
+row-invariant kernels, so a row's bits do not depend on the step's row
+count.  Prefill and training keep theirs.
 """
 from __future__ import annotations
 
@@ -122,16 +127,19 @@ def attn_block_decode(p, x, cfg: ModelConfig, cache, *, kind: str, pos):
     through `layers.decode_attention` with the config's decode knobs.
     Returns (x, cache) with ``cache`` the same dict."""
     window = cfg.window if kind == ATTN_LOCAL else None
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None])
+    kern = L.step_kernel(cfg, True)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, kernel=kern)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None], step=True)
     _write_contig(cache, pos[:, None], k, v)
     o = L.decode_attention(q, cache["k"], cache["v"], pos, window=window,
                            backend=cfg.decode_backend,
                            cfg=cfg.decode_attn_cfg, bkv=cfg.decode_bkv,
                            k_scale=cache.get("k_scale"),
                            v_scale=cache.get("v_scale"))
-    x = x + o.reshape(x.shape[0], 1, -1) @ asdense(p["attn"]["wo"], x.dtype)
-    return _ffn_out(p, x, cfg, decode_moe_capacity(cfg, x.shape[0])), cache
+    x = x + L.dense(o.reshape(x.shape[0], 1, -1), p["attn"]["wo"],
+                    kernel=kern)
+    return _ffn_out(p, x, cfg, decode_moe_capacity(cfg, x.shape[0]),
+                    step=True), cache
 
 
 def attn_block_prefill(p, x, cfg: ModelConfig, cache, *, kind: str, pos0,
@@ -176,14 +184,16 @@ def _paged_rows(block_table, pos, page_size):
     return block_table.long()[bidx, lp], pos % page_size
 
 
-def _ffn_out(p, x, cfg: ModelConfig, moe_capacity=None):
+def _ffn_out(p, x, cfg: ModelConfig, moe_capacity=None, step: bool = False):
     """x + FFN(ln2(x)); MoE layers with ``moe_capacity`` (the reference's
-    decode and prefill capacities)."""
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    decode and prefill capacities); a decode or verify ``step`` takes the
+    step's norm and products."""
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps,
+                  kernel=L.step_kernel(cfg, step))
     if cfg.n_experts:
-        y, _ = L.moe(p["moe"], h, cfg, capacity=moe_capacity)
+        y, _ = L.moe(p["moe"], h, cfg, capacity=moe_capacity, step=step)
         return x + y
-    return x + L.ffn(p["ffn"], h, backend=cfg.ffn_backend)
+    return x + L.ffn(p["ffn"], h, backend=cfg.ffn_backend, step=step)
 
 
 def attn_block(p, x, cfg: ModelConfig, *, kind: str, pos,
@@ -224,8 +234,9 @@ def attn_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
     to the NULL page."""
     window = cfg.window if kind == ATTN_LOCAL else None
     ps = cache["k"].shape[1]
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None])
+    kern = L.step_kernel(cfg, True)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, kernel=kern)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None], step=True)
     page, row = _paged_rows(block_table, pos, ps)
     if write_mask is not None:
         page = torch.where(write_mask, page, torch.zeros_like(page))
@@ -235,8 +246,8 @@ def attn_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
                                  cfg=cfg.decode_attn_cfg,
                                  k_scale=cache.get("k_scale"),
                                  v_scale=cache.get("v_scale"))
-    return x + o.reshape(x.shape[0], 1, -1) @ asdense(p["attn"]["wo"],
-                                                      x.dtype)
+    return x + L.dense(o.reshape(x.shape[0], 1, -1), p["attn"]["wo"],
+                       kernel=kern)
 
 
 def decode_moe_capacity(cfg: ModelConfig, b: int) -> int:
@@ -254,7 +265,8 @@ def attn_block_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
     ``cache`` the same dict."""
     x = attn_decode_paged(p, x, cfg, cache, kind=kind, pos=pos,
                           block_table=block_table, write_mask=write_mask)
-    return _ffn_out(p, x, cfg, decode_moe_capacity(cfg, x.shape[0])), cache
+    return _ffn_out(p, x, cfg, decode_moe_capacity(cfg, x.shape[0]),
+                    step=True), cache
 
 
 def attn_block_prefill_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
@@ -304,8 +316,9 @@ def attn_block_verify_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
     ps = cache["k"].shape[1]
     window = cfg.window if kind == ATTN_LOCAL else None
     pos = pos0.long()[:, None] + torch.arange(t, device=x.device)[None]
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, pos)
+    kern = L.step_kernel(cfg, True)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, kernel=kern)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, pos, step=True)
     page, row = _paged_rows(block_table, pos, ps)
     if valid_len is not None:
         live = torch.arange(t, device=x.device)[None] < valid_len[:, None]
@@ -316,5 +329,5 @@ def attn_block_verify_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
                            cfg=cfg.decode_attn_cfg,
                            k_scale=cache.get("k_scale"),
                            v_scale=cache.get("v_scale"))
-    o = o.reshape(b, t, -1) @ asdense(p["attn"]["wo"], x.dtype)
-    return _ffn_out(p, x + o, cfg, moe_capacity=b * t), cache
+    o = L.dense(o.reshape(b, t, -1), p["attn"]["wo"], kernel=kern)
+    return _ffn_out(p, x + o, cfg, moe_capacity=b * t, step=True), cache

@@ -11,6 +11,15 @@ Weights are cast to the activations' dtype where they are used, as the
 reference's ``asdense(w, x.dtype)`` does, so float32 master weights train
 with bf16 compute; quantized (`QTensor`) weights are dequantized there by
 the same `asdense`, except where a dequant-fused kernel takes them.
+
+The decode and verify steps of serving (``step=True``; `rmsnorm` and
+`dense` take `step_kernel`'s answer as ``kernel``) run every dense
+product and every norm under a kernel ``ffn_backend`` on row-invariant
+kernels: the coarsened matmul at base under a K split planned for one
+64-row tile (`dense`) and the row RMSNorm (`rmsnorm`).  A row's bits then do
+not depend on how many rows the step holds, so row t of a verify pass
+equals the decode step at the same position (RoPE and SiLU*up are
+elementwise).  Prefill and training keep their products and norms.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.coarsening import BASE
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as _norm
 from repro_torch.kernels import sparse_attention as _sparse
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtypes import QTensor, asdense, dequantize_kv
@@ -36,7 +47,8 @@ BACKENDS = ("ref", "cuda")
 # `*_kernel_takes` rules below), counted per call: flash and block-sparse
 # flash head dims other than 64 / 128 / 256 (or programs past 128 rows at
 # 256), verify and contiguous decode with T*G > 64 query rows a kv head
-# (or a head dim past 256), paged decode with G > 8.  On the card such a geometry raises NotImplementedError
+# (or a head dim past 256), paged decode with G > 64 (the same rule at T =
+# 1).  On the card such a geometry raises NotImplementedError
 # (`_not_held`): the plain path never stands in for a kernel there.
 flash_plain_routes = 0
 sparse_plain_routes = 0
@@ -71,17 +83,11 @@ def sparse_kernel_takes(d: int, bq: int, bkv: int, cfg, bwd_cfg) -> bool:
             and flash_kernel_takes(d, bq, bkv, BASE, bwd_cfg))
 
 
-def paged_kernel_takes(h: int, hkv: int, d: int, ps: int, elem: int) -> bool:
-    """Whether the paged decode kernel holds G = h/hkv query heads a kv
-    head, head dim ``d`` and pages of ``ps`` rows of ``elem`` bytes."""
-    return _decode.paged_takes(h // hkv, d, ps, elem)
-
-
 def rows_kernel_takes(t: int, h: int, hkv: int, d: int, seg: int,
                       elem: int) -> bool:
-    """Whether the rows kernel (contiguous decode at T = 1, verify at T
-    rows) holds T*G query rows a kv head over kv segments of ``seg``
-    rows."""
+    """Whether the rows kernel (paged and contiguous decode at T = 1,
+    verify at T rows) holds T*G query rows a kv head over kv segments (pages
+    or kv blocks) of ``seg`` rows."""
     return _decode.rows_takes(t, h // hkv, d, seg, elem)
 
 
@@ -92,14 +98,42 @@ def _uses_kernel(backend: str) -> bool:
     return backend == "cuda"
 
 
-def rmsnorm(p, x, eps=1e-6):
+def step_kernel(cfg: ModelConfig, step: bool) -> bool:
+    """Whether a block's dense products and norms take the row-invariant
+    kernels: on a decode or verify ``step`` under a kernel
+    ``ffn_backend``, which then also selects the attention projections,
+    the norms and the head; never in training and prefill.  The one place
+    the steps' route is decided: `rmsnorm` and `dense` take its answer."""
+    return step and _uses_kernel(cfg.ffn_backend)
+
+
+def rmsnorm(p, x, eps=1e-6, *, kernel: bool = False):
     """`repro/models/layers.py:87`: float32 statistics, scale applied as
-    (1 + scale), result in x's dtype."""
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + p["scale"].float())).to(dt)
+    (1 + scale), result in x's dtype.  With ``kernel`` (a step's,
+    `step_kernel`) the row kernel (`kernels.rmsnorm`), which sums every
+    row in one order whatever the row count."""
+    if kernel:
+        return _norm.rmsnorm(x, p["scale"], eps)
+    return ref.rmsnorm(x, p["scale"], eps)
+
+
+def dense(x, w, *, kernel: bool = False):
+    """x (..., k) @ w (k, n) in x's dtype (`asdense(w, x.dtype)`, as the
+    reference).  With ``kernel`` (a step's, `step_kernel`) the coarsened
+    matmul kernel at base under its one-tile K split (`matmul.step_matmul`;
+    on CPU tensors the plain float32 product), the float32 sums rounded
+    to x's dtype on the store as the reference's product rounds them;
+    ``w`` may then be K-major (a tied embedding's transpose)."""
+    w = asdense(w, x.dtype)
+    if not kernel:
+        return x @ w
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("the steps' products have no backward: the "
+                           "decode and verify steps run without autograd")
+    k, n = w.shape
+    y = _matmul.step_matmul(x.reshape(-1, k).contiguous(), w,
+                            out_dtype=x.dtype)
+    return y.view(*x.shape[:-1], n)
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
@@ -119,15 +153,18 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
     return out.reshape(x.shape).to(x.dtype)
 
 
-def qkv_project(p, x, cfg: ModelConfig, pos):
-    """x: (B,S,d) -> q (B,S,H,hd), k, v (B,S,Hkv,hd) with qk-norm and RoPE."""
+def qkv_project(p, x, cfg: ModelConfig, pos, *, step: bool = False):
+    """x: (B,S,d) -> q (B,S,H,hd), k, v (B,S,Hkv,hd) with qk-norm and RoPE;
+    a decode or verify ``step`` takes `step_kernel`'s products and
+    norms."""
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
     b, s, _ = x.shape
     hd, nq, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = x @ asdense(p["wq"], x.dtype)
-    k = x @ asdense(p["wk"], x.dtype)
-    v = x @ asdense(p["wv"], x.dtype)
+    kern = step_kernel(cfg, step)
+    q = dense(x, p["wq"], kernel=kern)
+    k = dense(x, p["wk"], kernel=kern)
+    v = dense(x, p["wv"], kernel=kern)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -136,8 +173,8 @@ def qkv_project(p, x, cfg: ModelConfig, pos):
     k = k.reshape(b, s, nkv, hd)
     v = v.reshape(b, s, nkv, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
-        k = rmsnorm(p["knorm"], k, cfg.norm_eps)
+        q = rmsnorm(p["qnorm"], q, cfg.norm_eps, kernel=kern)
+        k = rmsnorm(p["knorm"], k, cfg.norm_eps, kernel=kern)
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
                                                           cfg.rope_theta), v
 
@@ -381,14 +418,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
                            cfg="auto", k_scale=None, v_scale=None):
     """Single-token attention against a PAGED cache
     (`repro/models/layers.py:457-504`).  A kernel backend dispatches the
-    block-table split-KV kernel when the per-slot page count tiles by the
-    coarsening degree (a geometry the kernel does not hold,
-    `paged_kernel_takes`: G > 8, raises NotImplementedError on the card
-    and takes the plain path on CPU tensors, counted in
-    ``paged_plain_routes``); everything else gathers the table into
-    contiguous per-slot views and takes the dense plain path.  ``k_scale`` /
-    ``v_scale`` (P,ps,Hkv) mark int8 pools: the kernel takes them as they
-    are; the plain path dequantizes the gathered views to float32 first."""
+    rows kernel at T = 1 (`ops.paged_decode_attention`: verify's call with
+    ``pos0 = pos``, so a decode row and a verify row at the same position
+    get the same bits) when the per-slot page count tiles by the
+    coarsening degree, resolved under the paged family's key (a geometry
+    the kernel does not hold, `rows_kernel_takes` at T = 1: G > 64,
+    raises NotImplementedError on the card and takes the plain path on CPU
+    tensors, counted in ``paged_plain_routes``); everything else gathers
+    the table into contiguous per-slot views and takes the dense plain
+    path.  ``k_scale`` / ``v_scale`` (P,ps,Hkv) mark int8 pools: the kernel
+    takes them as they are; the plain path dequantizes the gathered views
+    to float32 first."""
     global paged_plain_routes
     h, d = q.shape[2], q.shape[3]
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
@@ -396,8 +436,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
     if _uses_kernel(backend) and h % hkv == 0:
         rcfg = ops.resolve_paged(cfg, q, k_pool, block_table,
                                  window=window, k_scale=k_scale)
-        if npp % rcfg.degree == 0 and not paged_kernel_takes(
-                h, hkv, d, ps, k_pool.element_size()):
+        if npp % rcfg.degree == 0 and not rows_kernel_takes(
+                1, h, hkv, d, ps, k_pool.element_size()):
             _not_held(q, f"paged decode with G={h // hkv} query heads a kv "
                       f"head at head dim {d}")
             paged_plain_routes += 1
@@ -471,7 +511,7 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0, *, window=None,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def ffn(p, x, *, backend: str = "ref", cfg="auto"):
+def ffn(p, x, *, backend: str = "ref", cfg="auto", step: bool = False):
     """SwiGLU FFN (`repro/models/layers.py:631`).  With a kernel backend the
     gate, up and down products take the coarsened matmul kernel whenever
     the rows tile as the reference requires (T % 128, d % 256, d_ff % 256);
@@ -485,11 +525,20 @@ def ffn(p, x, *, backend: str = "ref", cfg="auto"):
     Quantized weights (`QTensor`) take the dequant-fused kernel
     (`ops.quant_matmul`) on the same rule plus ``256 % group`` (:646-653);
     everything else dequantizes densely (`asdense`) and continues as
-    above, the reference's fallback — so decode's T = slots rows take it."""
+    above, the reference's fallback.
+
+    A decode or verify ``step`` under a kernel backend takes the steps'
+    products (`dense` with ``kernel``) for all three whatever the rows (quantized weights
+    dequantized first), so that each row's bits do not depend on the row
+    count."""
     shp = x.shape
     xt = x.reshape(-1, shp[-1])
     t, d = xt.shape
     kernel = _uses_kernel(backend)
+    if kernel and step:
+        h = F.silu(dense(xt, p["w1"], kernel=True)) * dense(xt, p["w3"],
+                                                            kernel=True)
+        return dense(h, p["w2"], kernel=True).reshape(shp)
     if isinstance(p["w1"], QTensor):
         d_ff = p["w1"].shape[-1]
         g = p["w1"].group or 256
@@ -560,14 +609,15 @@ _COMBINE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def moe(p, x, cfg: ModelConfig, *, capacity: int | None = None,
-        renorm: bool = True):
+        renorm: bool = True, step: bool = False):
     """Top-k MoE with per-expert top-capacity dispatch
     (`repro/models/layers.py:742-801`, the single-device path; the
     expert-parallel `_moe_shardmap` is not ported).  x: (B,S,d) ->
     ((B,S,d), aux load-balance loss).  Overflow tokens are dropped;
     pad experts get -1e30 router logits; the combine-scatter accumulates
     in ``cfg.moe_combine_dtype``; shared experts run through `ffn` with
-    ``cfg.ffn_backend``, scaled by a sigmoid gate."""
+    ``cfg.ffn_backend`` (on a decode or verify ``step``, its step
+    products), scaled by a sigmoid gate."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -601,5 +651,6 @@ def moe(p, x, cfg: ModelConfig, *, capacity: int | None = None,
     if cfg.n_shared_experts:
         gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()
                              ).to(x.dtype)
-        y = y + ffn(p["shared"], xt, backend=cfg.ffn_backend) * gate
+        y = y + ffn(p["shared"], xt, backend=cfg.ffn_backend,
+                    step=step) * gate
     return y.reshape(b, s, d), aux

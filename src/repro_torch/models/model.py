@@ -130,10 +130,13 @@ def _head(params, cfg: ModelConfig):
     return params["lm_head"]
 
 
-def _logits(params, x, cfg: ModelConfig):
-    """Final norm + head on (..., d) rows -> float32 (..., vocab)."""
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = (x @ _head(params, cfg).to(x.dtype)).float()
+def _logits(params, x, cfg: ModelConfig, step: bool = False):
+    """Final norm + head on (..., d) rows -> float32 (..., vocab); a decode
+    or verify ``step`` takes the step's norm and product (a tied head read
+    K-major in place)."""
+    kern = L.step_kernel(cfg, step)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, kernel=kern)
+    logits = L.dense(x, _head(params, cfg), kernel=kern).float()
     return logits[..., : cfg.vocab]               # drop pad-vocab ids
 
 
@@ -258,7 +261,7 @@ def lm_decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
                                              pos=pos,
                                              block_table=block_table,
                                              write_mask=write_mask)
-    return _logits(params, x[:, 0], cfg), cache
+    return _logits(params, x[:, 0], cfg, step=True), cache
 
 
 def lm_verify_step(params, cache, tokens, pos0, cfg: ModelConfig, *,
@@ -270,15 +273,19 @@ def lm_verify_step(params, cache, tokens, pos0, cfg: ModelConfig, *,
     page, their logits are garbage).  Returns (logits (B,T,vocab) float32
     — row t scores position pos0+t+1 — and the cache, rows [pos0, pos0+T)
     written in place).  Row t equals what `lm_decode_step` at pos0+t
-    computes from the same cache prefix, up to rounding: the exactness
-    property the greedy accept rule builds on."""
+    computes from the same cache prefix: the exactness property the greedy
+    accept rule builds on.  On the card under the kernel backends the two
+    are bit-equal, and so are the cache rows each writes (paged decode is
+    the verify attention at T = 1, and every product and norm of both
+    steps is row-invariant, `layers.step_kernel`); on the plain paths
+    they agree up to rounding."""
     x = _embed(params, tokens, cfg)
     for p, c, kind in zip(params["layers"], cache["layers"],
                           cfg.layer_kinds()):
         x, _ = B.attn_block_verify_paged(p, x, cfg, c, kind=kind, pos0=pos0,
                                          block_table=block_table,
                                          valid_len=valid_len)
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, step=True), cache
 
 
 def lm_prefill(params, tokens, cfg: ModelConfig, *, cache, block_table=None,

@@ -8,20 +8,22 @@ target's greedy argmaxes is accepted.  Greedy verify is exact in exact
 arithmetic: every emitted token is the target's own argmax given the
 accepted prefix.
 
-The T-row verify pass and the 1-row decode step sum in other orders (the
-products of T*B rows against B rows, the verify kernel against the decode
-kernel), so their logits agree only up to rounding — enough to flip an
-argmax on a near-tie.  The engine therefore trusts a verify row only when
-its top-1/top-2 margin clears ``tie_tau`` times the row's logit standard
-deviation (default 0.1).  A row under the guard, or one holding a
-non-finite value, ends the step's emission there; a slot that would emit
-nothing gets its one token from a RESCUE pass through the base engine's
-own decode step, so every emitted token is one the base engine's decode
-step would produce on the same cache, and progress is guaranteed.  The
-cache itself is not the base engine's: rows the verify pass writes round
-otherwise than rows a decode step writes, so on the card a run can still
-part from `PagedEngine`'s tokens at a near-tie (bf16, random weights);
-with every row voided (``tie_tau=inf``) the two agree.
+On the card under the kernel backends the T-row verify pass and the
+1-row decode step give the same bits: paged decode is the verify
+attention at T = 1, and every product and norm of both steps runs on a
+row-invariant kernel (`models.layers.step_kernel`), so the cache rows a
+verify pass writes are the rows decode steps would write, and the engine
+emits `PagedEngine`'s greedy tokens.  On the plain paths (and under tuned
+labels, where the decode and verify keys may resolve to different labels)
+the two agree only up to rounding, enough to flip an argmax on a
+near-tie.  The engine therefore trusts a verify row only when its
+top-1/top-2 margin clears ``tie_tau`` times the row's logit standard
+deviation (default 0.1), as the reference does.  A row under the guard, or
+one holding a non-finite value, ends the step's emission there; a slot
+that would emit nothing gets its one token from a RESCUE pass through the
+base engine's own decode step, so every emitted token is one the base
+engine's decode step would produce on the same cache, and progress is
+guaranteed.
 
 Paged mechanics:
 

@@ -250,8 +250,8 @@ def kernel_takes(spec: KernelSpec, cfg: CoarseningConfig) -> bool:
             1, h // hkv, d, p.get("bkv", 128), elem)
     if fam == "decode_attention_paged":
         b, h, hkv, npp, d = spec.shape
-        return h % hkv == 0 and _decode.paged_takes(
-            h // hkv, d, p.get("page_size", 64), elem)
+        return h % hkv == 0 and _decode.rows_takes(
+            1, h // hkv, d, p.get("page_size", 64), elem)
     if fam == "flash_attention_verify":
         b, h, hkv, t, npp, d = spec.shape
         return h % hkv == 0 and _decode.rows_takes(

@@ -165,8 +165,9 @@ def test_unknown_backend_raises():
 #    go to the plain path on CPU tensors, counted, and raise on the card;
 #    the reference's Pallas kernels take them)
 
-# arch: (flash fwd/bwd at the config's blocks, paged decode at page 16,
-# verify at T = 5 (--spec-k 4), contiguous decode at the config's bkv)
+# arch: (flash fwd/bwd at the config's blocks, paged decode at page 16 (the
+# rows kernel at T = 1), verify at T = 5 (--spec-k 4), contiguous decode
+# at the config's bkv)
 ROUTES = {
     "qwen3-0.6b": (True, True, True, True),
     "qwen2-moe-a2.7b": (True, True, True, True),
@@ -174,7 +175,7 @@ ROUTES = {
     "qwen1.5-4b": (True, True, True, True),
     "seamless-m4t-large-v2": (True, True, True, True),
     "gemma3-1b": (True, True, True, True),
-    "recurrentgemma-2b": (True, False, True, True),     # paged G 10
+    "recurrentgemma-2b": (True, True, True, True),      # paged G 10
     "yi-34b": (True, True, True, True),                 # T*G = 35
     "qwen2-vl-7b": (True, True, True, True),            # T*G = 35
 }
@@ -190,7 +191,7 @@ def test_kernel_routes_of_the_shipped_configs(arch):
     for elem in (2, 1):                       # bf16 and int8 caches
         got = (TL.flash_kernel_takes(c.hd, c.attn_bq, c.attn_bkv, BASE,
                                      BASE),
-               TL.paged_kernel_takes(*g, 16, elem),
+               TL.rows_kernel_takes(1, *g, 16, elem),
                TL.rows_kernel_takes(5, *g, 16, elem),
                TL.rows_kernel_takes(1, *g, c.decode_bkv, elem))
         assert got == ROUTES[arch]
@@ -207,10 +208,12 @@ def _pools(rng, b, h, hkv, d, ps=4, npp=4):
     return q, kp, vp, bt, pos
 
 
-@pytest.mark.parametrize("h,hkv,plain", [(10, 1, True), (4, 2, False)])
+@pytest.mark.parametrize("h,hkv,plain", [(72, 1, True), (10, 1, False),
+                                          (4, 2, False)])
 def test_paged_decode_route_beyond_the_kernel(h, hkv, plain):
-    """G > 8 (recurrentgemma-2b's 10) takes the plain path under the
-    kernel backend, counted; G 2 takes the kernel's wrapper."""
+    """G > 64 takes the plain path under the kernel backend, counted; G 10
+    (recurrentgemma-2b's, held since paged decode runs the rows kernel at
+    T = 1) and G 2 take the kernel's wrapper."""
     q, kp, vp, bt, pos = _pools(np.random.default_rng(1), 2, h, hkv, 32)
     before = TL.paged_plain_routes
     got = TL.paged_decode_attention(q, kp, vp, bt, pos, backend="cuda")
@@ -290,7 +293,7 @@ def _unheld(route):
         pos = torch.empty(2, dtype=torch.int32, **m)
         return lambda: TL.decode_attention(q, kc, kc, pos, backend="cuda",
                                            bkv=8)
-    t, h = (1, 10) if route == "paged" else (5, 26)
+    t, h = (1, 72) if route == "paged" else (5, 26)
     q = torch.empty(2, t, h, 32, **m)
     kp = torch.empty(9, 4, h // 13 if route == "verify" else 1, 32, **m)
     bt = torch.empty(2, 4, dtype=torch.int32, **m)
@@ -309,3 +312,20 @@ def test_unheld_geometry_raises_off_the_cpu(route):
     with pytest.raises(NotImplementedError, match="does not hold"):
         _unheld(route)()
     assert getattr(TL, f"{route}_plain_routes") == before
+
+
+def test_step_norm_takes_the_row_kernel_wrapper():
+    """On a decode or verify step under a kernel backend the norm takes
+    the row kernel's wrapper, whose CPU path is the plain norm bit for bit
+    (counted as no launch); the plain backend keeps the torch norm."""
+    from repro_torch.kernels import rmsnorm as t_norm
+    rng = np.random.default_rng(7)
+    p = {"scale": torch.from_numpy(rng.normal(size=64).astype(np.float32))}
+    x = torch.from_numpy(_rand(rng, 3, 5, 64)).bfloat16()
+    before = t_norm.launches
+    got = TL.rmsnorm(p, x, 1e-6, kernel=True)
+    want = TL.rmsnorm(p, x, 1e-6)
+    assert t_norm.launches == before
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    with pytest.raises(ValueError, match="scale"):
+        t_norm.rmsnorm(x, p["scale"][:32])

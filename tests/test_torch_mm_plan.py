@@ -250,3 +250,37 @@ def test_split_sweep_lists_every_split_and_marks_the_plan(capsys):
             assert len(mine) == len({s for s in mm_splits.SPLITS
                                      if s <= -(-k // mm.MM_KSTEP)}
                                     | {plan.splits})
+
+
+# -- the decode and verify steps' route (`step_plan`) --------------------------
+
+def _step_products(arch):
+    """(name, n, k) of a decode step's products (q, k and v, o, gate and up,
+    down, the head) at ``arch``'s published widths."""
+    from repro_torch.configs import get_config
+    c = get_config(arch)
+    return [("q", c.n_heads * c.hd, c.d_model),
+            ("kv", c.n_kv_heads * c.hd, c.d_model),
+            ("o", c.d_model, c.n_heads * c.hd), ("gate", c.d_ff, c.d_model),
+            ("down", c.d_model, c.d_ff), ("head", c.vocab_padded, c.d_model)]
+
+
+STEP_CASES = [(arch, *p) for arch in ("qwen3-0.6b", "gemma3-1b")
+              for p in _step_products(arch)]
+
+
+@pytest.mark.parametrize("arch,name,n,k", STEP_CASES,
+                         ids=[f"{a}-{p}" for a, p, _, _ in STEP_CASES])
+def test_step_plan_is_one_plan_for_every_row_count(arch, name, n, k):
+    """The steps' K split is the plan of ONE 64-row tile for every M in
+    1..128 at 132 SMs: the same slices (so every row's sums run in one
+    order whatever the rows), ceil(M / 64) row tiles, the column tiles
+    covering N; the kernel takes each product at base for any M."""
+    assert mm.step_takes(n, k)
+    one = mm.mm_split_plan(mm.BM, -(-n // mm.BN) * mm.BN, k, "base", 132)
+    for m in range(1, 129):
+        plan = mm.step_plan(m, n, k, 132)
+        assert (plan.splits, plan.unit) == (one.splits, one.unit)
+        assert plan.grid == (one.splits, -(-n // mm.BN), -(-m // mm.BM))
+        assert plan.bounds(k) == one.bounds(k)
+        assert plan.blocks <= one.blocks * -(-m // mm.BM)

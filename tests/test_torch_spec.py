@@ -9,6 +9,7 @@ JAX lacks, so the reference's plain (``"ref"``) paths are the oracle.
 Inputs are made with numpy from fixed seeds.
 """
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.models import model as JM
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core.coarsening import CoarseningConfig
+from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as TL
@@ -206,6 +208,57 @@ def test_lm_verify_rows_equal_decode_steps(jparams):
     dl = torch.stack(rows, dim=1)
     assert torch.equal(vl.argmax(-1), dl.argmax(-1))
     assert (vl - dl).abs().max() <= 0.02 * dl.abs().max()
+
+
+@pytest.mark.parametrize("step", ["decode", "verify"])
+def test_step_products_take_the_route(jparams, monkeypatch, step):
+    """With the kernel backends on CPU tensors, one reduced-qwen3
+    `lm_decode_step` or `lm_verify_step` sends every product (q, k, v, o,
+    gate, up, down a layer, and the head) to row 2's wrapper under the
+    steps' one-tile plan (`matmul.step_matmul`): 7 L + 1 calls, each on
+    all the step's rows, and calls `torch.matmul` or ``@`` from the model
+    code for none of them."""
+    slots, ps, npp = 2, 4, 8
+    cfg = dataclasses.replace(t_get_config("qwen3-0.6b").reduced(),
+                              decode_backend="cuda", ffn_backend="cuda")
+    params = params_from_numpy(jparams, cfg, "cpu")
+    table = torch.arange(1, 1 + slots * npp, dtype=torch.int32).reshape(
+        slots, npp)
+    cache = TM.lm_init_cache_paged(cfg, slots * npp + 1, ps, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (slots, T)))
+    pos = torch.full((slots,), 7, dtype=torch.int32)
+    route, plain = [], []
+    cmm, mm, at = tmm.coarsened_matmul, torch.matmul, torch.Tensor.__matmul__
+
+    def routed(a, b, *args, **kw):
+        route.append(a.shape[0])
+        return cmm(a, b, *args, **kw)
+
+    def from_models():
+        return "repro_torch/models/" in sys._getframe(2).f_code.co_filename
+
+    def matmul(*a, **kw):
+        if from_models():
+            plain.append("torch.matmul")
+        return mm(*a, **kw)
+
+    def matmul_op(x, y):
+        if from_models():
+            plain.append("@")
+        return at(x, y)
+
+    monkeypatch.setattr(tmm, "coarsened_matmul", routed)
+    monkeypatch.setattr(torch, "matmul", matmul)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", matmul_op)
+    if step == "decode":
+        TM.lm_decode_step(params, cache, toks[:, :1], pos, cfg,
+                          block_table=table)
+    else:
+        TM.lm_verify_step(params, cache, toks, pos, cfg, block_table=table)
+    rows = slots * (1 if step == "decode" else T)
+    assert route == [rows] * (7 * cfg.n_layers + 1)
+    assert plain == []
 
 
 # -- the engine ---------------------------------------------------------------

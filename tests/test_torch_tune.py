@@ -161,8 +161,8 @@ def _taken(spec, cfg) -> bool:
     if fam == "decode_attention":
         return tdec.rows_takes(1, h // hkv, spec.shape[4], p["bkv"], elem)
     if fam == "decode_attention_paged":
-        return tdec.paged_takes(h // hkv, spec.shape[4], p["page_size"],
-                                elem)
+        return tdec.rows_takes(1, h // hkv, spec.shape[4], p["page_size"],
+                               elem)
     if fam == "flash_attention_verify":
         return tdec.rows_takes(spec.shape[3], h // hkv, spec.shape[5],
                                p["page_size"], elem)
