@@ -64,7 +64,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 1 bf16 ulp of its plain version, launched twice bit-equal,
    lane 0's values lost from the sum of squares shown to exceed it, and
    timed beside `F.rms_norm`. The qwen2-moe-a2.7b kernels: the int8-pool paged decode, the grouped-expert
-   MoE FFN (capacities 128 and 8), its dequant-fused twin (int8 and int4)
+   MoE FFN (capacities 128 and 8), its dequant-fused twin (int8 and int4;
+   also on a mixed dispatch, each case launched twice bit-equal, with a
+   dropped K stage, a skipped live tile, swapped nibbles and scales a group
+   off as fault models, its instances' local memory read from the module)
    and the dequant-fused matmul (int8 and int4), each error printed as a
    ratio of its limit beside a fault model (a lost page of V scales, a lost
    expert, a lost scale, swapped nibbles) that must exceed it; the
@@ -1585,64 +1588,135 @@ def moe_phase(gen) -> dict:
             "max_abs_err": worst, **timing[MOE_CAPS[0]]}
 
 
+def mixed_dispatch(gen, cap: int):
+    """A dispatch the layer's rule rarely makes, at capacity ``cap``: expert
+    e1 with 24 live rows, expert e2 with every row live, expert e3 all dead
+    between live neighbours, and every expert's rows (x with comb) shuffled
+    along C, so that live rows lie over non-leading 16-row tiles."""
+    e, d = MOE["e"], MOE["d"]
+    xe, comb = moe_dispatch(gen, cap, cap)
+    live_e = (comb > 0).any(dim=1).nonzero().flatten().tolist()
+    e1, e2 = live_e[0], live_e[1]
+    e3 = next(x for x in live_e[2:] if x - 1 in live_e and x + 1 in live_e)
+    for ex, rows in ((e1, 24), (e2, cap)):
+        comb[ex] = 0
+        comb[ex, :rows] = torch.rand(rows, generator=gen, device="cuda") \
+            * 0.9 + 0.05
+        xe[ex, :rows] = torch.randn(rows, d, generator=gen,
+                                    device="cuda").bfloat16()
+    comb[e3], xe[e3] = 0, 0
+    perm = torch.randperm(cap, generator=gen, device="cuda")
+    return (xe[:, perm].contiguous(), comb[:, perm].contiguous(),
+            (e1, e2, e3))
+
+
+def quant_moe_faults(xe, qs, comb, want, tol, bits: int) -> dict:
+    """Plain-version models of what can go wrong in row 11 (each must exceed
+    the limit): a lost scale (int8: w2's column 0, int4: w2's group row 0),
+    one 128-row K stage of x@w1 dropped, a live 16-row tile skipped, and at
+    int4 w1's nibbles swapped and its group scales off by one group."""
+    e0 = int((comb > 0).any(dim=1).nonzero()[0].item())
+    out = {}
+    sc = qs[2].scale.clone()
+    if bits == 8:
+        sc[e0, 0, 0] = 0.0           # column 0's scale
+    else:
+        sc[e0, 0] = 0.0              # group row 0
+    out["lost scale"] = ref.quant_moe_ffn(
+        xe, qs[0], qs[1], dataclasses.replace(qs[2], scale=sc), comb)
+    bad_x = xe.clone()
+    bad_x[e0, :, 128:256] = 0
+    out["K stage dropped"] = ref.quant_moe_ffn(bad_x, *qs, comb)
+    skipped = want.clone()
+    t = int((comb[e0] > 0).nonzero()[-1].item()) // 16
+    skipped[e0, 16 * t:16 * t + 16] = 0
+    out["live tile skipped"] = skipped
+    if bits == 4:
+        out["nibbles swapped"] = ref.quant_moe_ffn(
+            xe, swapped_nibbles(qs[0]), qs[1], qs[2], comb)
+        sc1 = qs[0].scale.clone()
+        sc1[e0] = torch.roll(sc1[e0], 1, dims=0)
+        out["scales a group off"] = ref.quant_moe_ffn(
+            xe, dataclasses.replace(qs[0], scale=sc1), qs[1], qs[2], comb)
+    return {k: limit_ratio(v, want, tol) for k, v in out.items()}
+
+
 def quant_moe_phase(gen) -> dict:
     """Row 11 (`moe_ffn.py:190`): int8 and int4, every label at both
-    capacities; a lost scale (int8: one column of w2's, int4: one group
-    row of w2's) as the fault model; times at capacity 128."""
+    capacities on the layer's dispatch and, at C 128, on `mixed_dispatch`;
+    every case launched twice and bit-equal; the fault models of
+    `quant_moe_faults`; each instance's local memory (any fails); times at
+    both capacities, with a call's host microseconds."""
+    for name, local, regs in moe_mod.instances():
+        print(f"quant_moe_ffn instance {name}: {regs} registers, {local} "
+              f"bytes of local memory", flush=True)
+        if local:
+            raise SystemExit(f"quant_moe_ffn instance {name} uses local "
+                             f"memory")
     w1, w3, w2 = moe_weights(gen)
     worst, timing = 0.0, {}
+    smi = smi_line()
     for bits in (8, 4):
         qs = [quantize(w, f"int{bits}") for w in (w1, w3, w2)]
         dq = [dequantize(q) for q in qs]
+        dqb = [d.bfloat16() for d in dq]
         for cap in MOE_CAPS:
-            xe, comb = moe_dispatch(gen, cap, cap)
-            want = ref.quant_moe_ffn(xe, *qs, comb)
-            tol = QMOE_EPS * moe_mag(xe, *dq, comb, round_h=False)
-            e0 = int((comb > 0).any(dim=1).nonzero()[0].item())
-            sc = qs[2].scale.clone()
-            if bits == 8:
-                sc[e0, 0, 0], what = 0.0, "column 0's scale"
-            else:
-                sc[e0, 0], what = 0.0, "scale group 0"
-            bad = ref.quant_moe_ffn(xe, qs[0], qs[1], dataclasses.replace(
-                qs[2], scale=sc), comb)
-            fault = limit_ratio(bad, want, tol)
-            for label in MOE_LABELS:
-                got = ops.quant_moe_ffn(xe, *qs, comb, label)
-                torch.cuda.synchronize()
-                r = limit_ratio(got, want, tol)
-                err = (got - want).abs().max().item()
-                print(f"quant_moe_ffn int{bits} C={cap} {label}: "
-                      f"max|kernel-plain| {err:.3e}; max error / limit "
-                      f"{r:.4f}; fault model (w2 {what} of expert {e0} "
-                      f"lost) / limit {fault:.1f}", flush=True)
-                if not r <= 1:
-                    raise SystemExit(f"quant_moe_ffn int{bits} {label} at "
-                                     f"C={cap} disagrees with its plain "
-                                     f"version")
-                worst = max(worst, err)
-            if not fault > 1:
-                raise SystemExit("the quant_moe_ffn limit would not catch a "
-                                 "lost scale")
+            cases = [("layer", *moe_dispatch(gen, cap, cap))]
+            if cap == MOE_CAPS[0]:
+                xm, cm, (e1, e2, e3) = mixed_dispatch(gen, cap)
+                cases.append((f"mixed (e{e1} 24 rows shuffled, e{e2} all "
+                              f"{cap} rows, e{e3} dead)", xm, cm))
+            for what, xe, comb in cases:
+                want = ref.quant_moe_ffn(xe, *qs, comb)
+                tol = QMOE_EPS * moe_mag(xe, *dq, comb, round_h=False)
+                faults = quant_moe_faults(xe, qs, comb, want, tol, bits)
+                for label in MOE_LABELS:
+                    got = ops.quant_moe_ffn(xe, *qs, comb, label)
+                    again = ops.quant_moe_ffn(xe, *qs, comb, label)
+                    torch.cuda.synchronize()
+                    r = limit_ratio(got, want, tol)
+                    err = (got - want).abs().max().item()
+                    print(f"quant_moe_ffn int{bits} C={cap} {what} {label}: "
+                          f"max|kernel-plain| {err:.3e}; max error / limit "
+                          f"{r:.4f}; two launches "
+                          f"{bits_differ(again, got)} bits apart",
+                          flush=True)
+                    if not r <= 1:
+                        raise SystemExit(f"quant_moe_ffn int{bits} {label} "
+                                         f"at C={cap} ({what}) disagrees "
+                                         f"with its plain version")
+                    hold_equal(f"quant_moe_ffn int{bits} C={cap} {label} "
+                               f"relaunch", again, got)
+                    worst = max(worst, err)
+                print(f"quant_moe_ffn int{bits} C={cap} {what}: fault models "
+                      f"/ limit: " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in faults.items()),
+                      flush=True)
+                bad = [k for k, v in faults.items() if not v > 1]
+                if bad:
+                    raise SystemExit(f"the quant_moe_ffn limit would not "
+                                     f"catch: {', '.join(bad)}")
+            xe, comb = cases[0][1], cases[0][2]
             wb = sum(q.nbytes for q in qs) / MOE["e"]
             io, flops, live_e, rows = moe_work(xe, comb, wb)
             bms, by = bound(io, flops)
-            dqb = [d.bfloat16() for d in dq]
             t = {"ms": time_ms(lambda: ops.quant_moe_ffn(xe, *qs, comb)),
                  "plain_ms": time_ms(
                      lambda: ref.quant_moe_ffn(xe, *qs, comb), reps=5),
                  "library_ms": time_ms(lambda: bmm_chain(xe, *dqb, comb)),
                  "bound_ms": bms, "bound_by": by}
+            us = host_us(lambda: ops.quant_moe_ffn(xe, *qs, comb))
             timing[(bits, cap)] = t
             print(f"quant_moe_ffn int{bits} timing (C={cap}, base, {live_e} "
-                  f"live experts): kernel {t['ms']:.4f} ms | bound "
-                  f"{bms:.4f} ms ({by}) | plain {t['plain_ms']:.4f} ms | "
-                  f"torch.bmm chain on dequantized bf16 panes "
-                  f"{t['library_ms']:.4f} ms", flush=True)
-            del xe, comb, want, tol, bad, dqb
-        del qs, dq
+                  f"live experts, {rows} live rows; {smi}): kernel "
+                  f"{t['ms']:.4f} ms | bound {bms:.4f} ms ({by}) | plain "
+                  f"{t['plain_ms']:.4f} ms | torch.bmm chain on dequantized "
+                  f"bf16 panes {t['library_ms']:.4f} ms | host {us:.1f} us "
+                  f"a call", flush=True)
+            del xe, comb
+        del qs, dq, dqb
     return {"name": "quant_moe_ffn", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+            "source": "src/repro_torch/kernels/csrc/quant_moe_ffn.cu",
             "replaces": "src/repro/kernels/moe_ffn.py:190",
             "max_abs_err": worst, **timing[(8, MOE_CAPS[0])]}
 

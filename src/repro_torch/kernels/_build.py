@@ -27,8 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "matmul", "flash_attention",
-           "sparse_attention", "moe_ffn", "quant_matmul", "stream",
-           "stencil", "chunk_scan", "embed_gather", "ssd", "rglru",
+           "sparse_attention", "moe_ffn", "quant_moe_ffn", "quant_matmul",
+           "stream", "stencil", "chunk_scan", "embed_gather", "ssd", "rglru",
            "windowed_gather", "rmsnorm")
 MAX_SMEM = 227 * 1024               # dynamic shared memory a block may use
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,7 +61,10 @@ SIGNATURES = {
     },
     "moe_ffn": {
         "moe_ffn_bf16": [_P] * 7 + [_I] * 6 + [_P],
-        "quant_moe_ffn": [_P] * 10 + [_I] * 8 + [_P],
+    },
+    "quant_moe_ffn": {
+        "quant_moe_ffn": [_P] * 10 + [_I] * 18 + [_P],
+        "quant_moe_ffn_instance": [_I, _P, _I, _P, _P],
     },
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 8 + [_P],

@@ -1,5 +1,5 @@
-// A blocked tensor-core GEMM tile for Hopper (sm_90a), used by the MoE FFN
-// kernels (`moe_ffn.cu`).
+// A blocked tensor-core GEMM tile for Hopper (sm_90a), used by the bf16 MoE
+// FFN kernel (`moe_ffn.cu`, row 9) alone.
 //
 // One thread block (256 threads, 8 warps) owns BN = 64 output columns and
 // a chunk of MR = 2 * MT * 16 rows, and walks the contraction axis in
@@ -10,17 +10,8 @@
 // flight while the current step multiplies (register double buffering);
 // there is no TMA, wgmma or deeper pipeline yet.
 //
-// The B operand (a weight, K x N row-major) arrives as bf16, as int8 with
-// one f32 scale per column (scale (1, N)), or as int4 nibbles packed two
-// to a byte along K (offset-binary, even rows in the low nibble; scale
-// (K/group, N)).  Packed values are widened to bf16 when they are staged
-// (every int8 and int4 value is exact in bf16), so the tensor cores form
-// the exact products x * q and sum them in f32; the scales are applied
-// after the product: int8 once per column in the epilogue, int4 once per
-// group (the group's partial sums are kept apart, scaled, then added).
-// An f32 A operand (the f32 intermediate of the dequant-fused MoE) is
-// split into hi = bf16(a) and lo = bf16(a - hi) and both are multiplied,
-// which keeps a to about 2^-17 of itself.
+// The B operand (a weight, K x N row-major) and the A rows are bf16; the
+// tensor cores sum in f32.
 //
 // Rows.  With a combine-weight array (`comb`, the MoE), a 16-row tile
 // whose rows all have weight 0 is dead: its output is exactly 0 (the
@@ -43,21 +34,19 @@ constexpr int BN = 64, BK = 32, NT = 256;
 constexpr int LDA = BK + 8;        // padded shared-memory row strides (bf16)
 constexpr int LDB = BN + 8;
 
-enum { B_BF16 = 0, B_INT8 = 1, B_INT4 = 2 };
-enum { EPI_SWIGLU_BF16 = 0, EPI_SWIGLU_F32 = 1, EPI_COMB = 2, EPI_STORE = 3 };
+enum { EPI_SWIGLU = 0, EPI_COMB = 1 };
 
 struct Weight {                    // one B operand, per batch item
-  const void* q;                   // bf16 / int8 (K, N) or uint8 (K/2, N)
-  const float* s;                  // (1, N) int8 / (K/group, N) int4 scales
-  long long q_stride, s_stride;    // elements per batch item
+  const void* q;                   // bf16 (K, N)
+  long long q_stride;              // elements per batch item
 };
 
 struct Params {
-  const void* a;                   // bf16 or f32 rows, (batch * rows, K)
+  const void* a;                   // bf16 rows, (batch * rows, K)
   Weight w[2];
   const float* comb;               // (batch, rows) or null: every row live
   void* out;                       // (batch * rows, N) bf16 or f32
-  int rows, n, k, group;
+  int rows, n, k;
   int batch, degree, gapped;       // batch items (experts), coarsening
 };
 
@@ -91,37 +80,6 @@ __device__ __forceinline__ uint32_t ld_pair_col(const bf16* p, int ld) {
   return lo | (hi << 16);
 }
 
-// 8 signed bytes -> 8 bf16 (exact)
-__device__ __forceinline__ uint4 widen_i8(uint32_t lo4, uint32_t hi4) {
-  uint4 o;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t src = i < 2 ? lo4 : hi4;
-    const int sh = (i & 1) * 16;
-    const float x0 = (float)(int8_t)((src >> sh) & 0xff);
-    const float x1 = (float)(int8_t)((src >> (sh + 8)) & 0xff);
-    w[i] = pack2(x0, x1);
-  }
-  return o;
-}
-
-// 8 nibbles (shift 0: low, 4: high) of 8 bytes -> 8 bf16 of value q - 8
-__device__ __forceinline__ uint4 widen_i4(uint32_t lo4, uint32_t hi4,
-                                         int shift) {
-  uint4 o;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t src = i < 2 ? lo4 : hi4;
-    const int sh = (i & 1) * 16 + shift;
-    const float x0 = (float)((int)((src >> sh) & 0xf) - 8);
-    const float x1 = (float)((int)((src >> (sh + 8)) & 0xf) - 8);
-    w[i] = pack2(x0, x1);
-  }
-  return o;
-}
-
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
 // rows of a block's chunk: the batch item's own rows m0 + r
@@ -130,15 +88,14 @@ __device__ __forceinline__ int global_row(const Params& p, int e, int m0,
   return e * p.rows + m0 + r;
 }
 
-template <int MT, int NB, bool AF32, int BKIND, int EPI>
+template <int MT, int NB, int EPI>
 __global__ void __launch_bounds__(NT)
 gemm_kernel(const Params p) {
   constexpr int MR = 2 * MT * 16;                 // rows per chunk
-  constexpr int VA = AF32 ? BK / 4 : BK / 8;      // 16-byte vectors per A row
+  constexpr int VA = BK / 8;                      // 16-byte vectors per A row
   constexpr int RA = (MR * VA + NT - 1) / NT;     // A vectors per thread
-  constexpr int VB = BKIND == B_BF16 ? BK * BN / 8
-                     : BKIND == B_INT8 ? BK * BN / 16 : BK * BN / 32;
-  __shared__ __align__(16) bf16 sa[(AF32 ? 2 : 1) * MR * LDA];
+  constexpr int VB = BK * BN / 8;
+  __shared__ __align__(16) bf16 sa[MR * LDA];
   __shared__ __align__(16) bf16 sb[NB * BK * LDB];
   __shared__ int live[2 * MT];
 
@@ -174,22 +131,18 @@ gemm_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < 2 * MT; ++i) any |= live[i];
 
-      constexpr int NACC = BKIND == B_INT4 ? 2 : 1;
-      float acc[NACC][NB][MT][2][4];
+      float acc[NB][MT][2][4];
 #pragma unroll
-      for (int a = 0; a < NACC; ++a)
+      for (int o = 0; o < NB; ++o)
 #pragma unroll
-        for (int o = 0; o < NB; ++o)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+          for (int jn = 0; jn < 2; ++jn)
 #pragma unroll
-            for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-              for (int x = 0; x < 4; ++x) acc[a][o][mt][jn][x] = 0.f;
+            for (int x = 0; x < 4; ++x) acc[o][mt][jn][x] = 0.f;
 
       if (any) {
         const bf16* abf = static_cast<const bf16*>(p.a);
-        const float* af = static_cast<const float*>(p.a);
         uint4 ra[RA];
         uint4 rb[NB];
         // global -> registers for the step at k0 (live, valid rows only)
@@ -200,79 +153,35 @@ gemm_kernel(const Params p) {
             const int r = i / VA, c = i % VA;
             if (i < MR * VA && r < nvalid && live[r >> 4]) {
               const size_t row = (size_t)global_row(p, e, m0, r) * p.k + k0;
-              ra[it] = AF32 ? *reinterpret_cast<const uint4*>(af + row + c * 4)
-                            : *reinterpret_cast<const uint4*>(abf + row + c * 8);
+              ra[it] = *reinterpret_cast<const uint4*>(abf + row + c * 8);
             }
           }
 #pragma unroll
           for (int o = 0; o < NB; ++o) {
             if (tid < VB) {
-              if (BKIND == B_BF16) {
-                const int r = tid / (BN / 8), c = tid % (BN / 8);
-                const bf16* q = static_cast<const bf16*>(p.w[o].q) +
-                                (size_t)e * p.w[o].q_stride;
-                rb[o] = *reinterpret_cast<const uint4*>(
-                    q + (size_t)(k0 + r) * p.n + n0 + c * 8);
-              } else {
-                const int r = tid / (BN / 16), c = tid % (BN / 16);
-                const int kr = BKIND == B_INT8 ? k0 + r : k0 / 2 + r;
-                const uint8_t* q = static_cast<const uint8_t*>(p.w[o].q) +
-                                   (size_t)e * p.w[o].q_stride;
-                rb[o] = *reinterpret_cast<const uint4*>(
-                    q + (size_t)kr * p.n + n0 + c * 16);
-              }
+              const int r = tid / (BN / 8), c = tid % (BN / 8);
+              const bf16* q = static_cast<const bf16*>(p.w[o].q) +
+                              (size_t)e * p.w[o].q_stride;
+              rb[o] = *reinterpret_cast<const uint4*>(
+                  q + (size_t)(k0 + r) * p.n + n0 + c * 8);
             }
           }
         };
-        // registers -> shared memory, widening packed weights to bf16
+        // registers -> shared memory
         auto store = [&]() {
 #pragma unroll
           for (int it = 0; it < RA; ++it) {
             const int i = tid + it * NT;
             const int r = i / VA, c = i % VA;
-            if (i < MR * VA && r < nvalid && live[r >> 4]) {
-              if (AF32) {
-                const float* x = reinterpret_cast<const float*>(&ra[it]);
-                uint2 hi, lo;
-                float h[4];
-#pragma unroll
-                for (int u = 0; u < 4; ++u)
-                  h[u] = __bfloat162float(__float2bfloat16_rn(x[u]));
-                hi.x = pack2(h[0], h[1]);
-                hi.y = pack2(h[2], h[3]);
-                lo.x = pack2(x[0] - h[0], x[1] - h[1]);
-                lo.y = pack2(x[2] - h[2], x[3] - h[3]);
-                *reinterpret_cast<uint2*>(&sa[r * LDA + c * 4]) = hi;
-                *reinterpret_cast<uint2*>(&sa[(MR + r) * LDA + c * 4]) = lo;
-              } else {
-                *reinterpret_cast<uint4*>(&sa[r * LDA + c * 8]) = ra[it];
-              }
-            }
+            if (i < MR * VA && r < nvalid && live[r >> 4])
+              *reinterpret_cast<uint4*>(&sa[r * LDA + c * 8]) = ra[it];
           }
 #pragma unroll
           for (int o = 0; o < NB; ++o) {
             if (tid < VB) {
               bf16* sbo = sb + o * BK * LDB;
-              if (BKIND == B_BF16) {
-                const int r = tid / (BN / 8), c = tid % (BN / 8);
-                *reinterpret_cast<uint4*>(&sbo[r * LDB + c * 8]) = rb[o];
-              } else if (BKIND == B_INT8) {
-                const int r = tid / (BN / 16), c = tid % (BN / 16);
-                bf16* dst = &sbo[r * LDB + c * 16];
-                *reinterpret_cast<uint4*>(dst) = widen_i8(rb[o].x, rb[o].y);
-                *reinterpret_cast<uint4*>(dst + 8) =
-                    widen_i8(rb[o].z, rb[o].w);
-              } else {
-                const int r = tid / (BN / 16), c = tid % (BN / 16);
-                bf16* d0 = &sbo[(2 * r) * LDB + c * 16];
-                bf16* d1 = d0 + LDB;
-                *reinterpret_cast<uint4*>(d0) = widen_i4(rb[o].x, rb[o].y, 0);
-                *reinterpret_cast<uint4*>(d0 + 8) =
-                    widen_i4(rb[o].z, rb[o].w, 0);
-                *reinterpret_cast<uint4*>(d1) = widen_i4(rb[o].x, rb[o].y, 4);
-                *reinterpret_cast<uint4*>(d1 + 8) =
-                    widen_i4(rb[o].z, rb[o].w, 4);
-              }
+              const int r = tid / (BN / 8), c = tid % (BN / 8);
+              *reinterpret_cast<uint4*>(&sbo[r * LDB + c * 8]) = rb[o];
             }
           }
         };
@@ -301,44 +210,17 @@ gemm_kernel(const Params p) {
               if (!live[tile]) continue;          // warp-uniform
               const int r = tile * 16 + g;
               const bool ok0 = r < nvalid, ok1 = r + 8 < nvalid;
+              const bf16* x = sa + r * LDA + ks * 16 + 2 * t;
+              const uint32_t a0 = ok0 ? ld_pair(x) : 0u;
+              const uint32_t a1 = ok1 ? ld_pair(x + 8 * LDA) : 0u;
+              const uint32_t a2 = ok0 ? ld_pair(x + 8) : 0u;
+              const uint32_t a3 = ok1 ? ld_pair(x + 8 * LDA + 8) : 0u;
 #pragma unroll
-              for (int part = 0; part < (AF32 ? 2 : 1); ++part) {
-                const bf16* x = sa + (part * MR + r) * LDA + ks * 16 + 2 * t;
-                const uint32_t a0 = ok0 ? ld_pair(x) : 0u;
-                const uint32_t a1 = ok1 ? ld_pair(x + 8 * LDA) : 0u;
-                const uint32_t a2 = ok0 ? ld_pair(x + 8) : 0u;
-                const uint32_t a3 = ok1 ? ld_pair(x + 8 * LDA + 8) : 0u;
+              for (int o = 0; o < NB; ++o)
 #pragma unroll
-                for (int o = 0; o < NB; ++o)
-#pragma unroll
-                  for (int jn = 0; jn < 2; ++jn)
-                    mma(acc[NACC - 1][o][mt][jn], a0, a1, a2, a3,
-                        bf[o][jn][0], bf[o][jn][1]);
-              }
-            }
-            if (BKIND == B_INT4) {
-              // end of a scale group: acc += scale * the group's sums
-              const int kend = k0 + ks * 16 + 16;
-              if (kend % p.group == 0) {
-                const int grp = kend / p.group - 1;
-#pragma unroll
-                for (int o = 0; o < NB; ++o)
-#pragma unroll
-                  for (int jn = 0; jn < 2; ++jn) {
-                    const int col = n0 + wc * 16 + jn * 8 + 2 * t;
-                    const float2 s = *reinterpret_cast<const float2*>(
-                        p.w[o].s + (size_t)e * p.w[o].s_stride +
-                        (size_t)grp * p.n + col);
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                      for (int x = 0; x < 4; ++x) {
-                        acc[0][o][mt][jn][x] +=
-                            ((x & 1) ? s.y : s.x) * acc[NACC - 1][o][mt][jn][x];
-                        acc[NACC - 1][o][mt][jn][x] = 0.f;
-                      }
-                  }
-              }
+                for (int jn = 0; jn < 2; ++jn)
+                  mma(acc[o][mt][jn], a0, a1, a2, a3, bf[o][jn][0],
+                      bf[o][jn][1]);
             }
           }
         }
@@ -353,46 +235,23 @@ gemm_kernel(const Params p) {
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn) {
           const int col = n0 + wc * 16 + jn * 8 + 2 * t;
-          float v[NB][4];
-#pragma unroll
-          for (int o = 0; o < NB; ++o) {
-            float sx = 1.f, sy = 1.f;
-            if (BKIND == B_INT8 && lv) {
-              const float2 s = *reinterpret_cast<const float2*>(
-                  p.w[o].s + (size_t)e * p.w[o].s_stride + col);
-              sx = s.x;
-              sy = s.y;
-            }
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              v[o][x] = acc[0][o][mt][jn][x] * ((x & 1) ? sy : sx);
-          }
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int r = tile * 16 + g + half * 8;
             if (r >= nvalid) continue;
             const size_t orow = (size_t)global_row(p, e, m0, r);
-            const float x0 = v[0][2 * half], x1 = v[0][2 * half + 1];
-            if (EPI == EPI_SWIGLU_BF16 || EPI == EPI_SWIGLU_F32) {
-              const float h0 = silu(x0) * v[NB - 1][2 * half];
-              const float h1 = silu(x1) * v[NB - 1][2 * half + 1];
-              if (EPI == EPI_SWIGLU_BF16)
-                *reinterpret_cast<uint32_t*>(
-                    static_cast<bf16*>(p.out) + orow * p.n + col) =
-                    pack2(h0, h1);
-              else
-                *reinterpret_cast<float2*>(
-                    static_cast<float*>(p.out) + orow * p.n + col) =
-                    make_float2(h0, h1);
-            } else if (EPI == EPI_COMB) {
+            const float x0 = acc[0][mt][jn][2 * half];
+            const float x1 = acc[0][mt][jn][2 * half + 1];
+            if (EPI == EPI_SWIGLU) {
+              const float h0 = silu(x0) * acc[NB - 1][mt][jn][2 * half];
+              const float h1 = silu(x1) * acc[NB - 1][mt][jn][2 * half + 1];
+              *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) +
+                                           orow * p.n + col) = pack2(h0, h1);
+            } else {
               const float cw = lv ? p.comb[orow] : 0.f;
               *reinterpret_cast<float2*>(static_cast<float*>(p.out) +
                                          orow * p.n + col) =
                   lv ? make_float2(x0 * cw, x1 * cw) : make_float2(0.f, 0.f);
-            } else {
-              *reinterpret_cast<float2*>(static_cast<float*>(p.out) +
-                                         orow * p.n + col) =
-                  make_float2(x0, x1);
             }
           }
         }
@@ -401,10 +260,10 @@ gemm_kernel(const Params p) {
   }
 }
 
-template <int MT, int NB, bool AF32, int BKIND, int EPI>
+template <int MT, int NB, int EPI>
 int launch(const Params& p, int grid_y, cudaStream_t st) {
   dim3 grid(p.n / BN, grid_y);
-  gemm_kernel<MT, NB, AF32, BKIND, EPI><<<grid, NT, 0, st>>>(p);
+  gemm_kernel<MT, NB, EPI><<<grid, NT, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 

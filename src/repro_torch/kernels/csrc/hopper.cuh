@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
 // with TMA and multiply them with wgmma: the coarsened matmul (`matmul.cu`),
-// the dequant-fused matmul (`quant_matmul.cu`) and the flash forward, dQ
-// and dK/dV (`flash_attention.cu`).
+// the dequant-fused matmul (`quant_matmul.cu`), the dequant-fused MoE FFN
+// (`quant_moe_ffn.cu`) and the flash forward, dQ and dK/dV
+// (`flash_attention.cu`).
 //
-// mbarriers (init, expect_tx, arrive, parity wait), 2-D TMA tensor copies
-// and 1-D bulk copies completing on an mbarrier, the async-proxy fence,
+// mbarriers (init, expect_tx, arrive, parity wait), 2-D to 4-D TMA tensor
+// copies and 1-D bulk copies completing on an mbarrier, the async-proxy fence,
 // named barriers, wgmma descriptors of 128-byte-swizzled tiles
 // (K-major and MN-major), the wgmma fence / commit / wait, the products
 // themselves (A from registers or from shared memory, B from shared
@@ -70,6 +71,28 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// box (x, y, z) of a 3-D tensor map -> shared dst, completing on bar
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       int x, int y, int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+// box (x, y, z, w) of a 4-D tensor map -> shared dst, completing on bar
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       int x, int y, int z, int w,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w),
+      "r"(bar)
       : "memory");
 }
 
@@ -152,12 +175,33 @@ __device__ __forceinline__ void regs_inc() {
 
 // D[64xN] (+)= A[64x16] (registers) * B[16xN] (shared, by descriptor; B
 // K-major, or MN-major with TRANS_B = 1), bf16 x bf16 -> f32; acc 0 starts
-// a fresh sum
+// a fresh sum.  N 8 and 16: the MoE FFN's live row tiles.
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int acc) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: N");
+  static_assert(N == 8 || N == 16 || N == 64 || N == 128 || N == 256,
+                "wgmma_rs: N");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TRANS_B));
+  }
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TRANS_B));
+  }
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -384,6 +428,30 @@ inline int make_map(CUtensorMap* m, CUtensorMapDataType type,
   const cuuint32_t box[2] = {box_in, box_out}, es[2] = {1, 1};
   const CUresult r = enc(m, type, 2, const_cast<void*>(ptr), dims, strides,
                          box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a map of `rank` (2-5) dimensions: dims[0] elements contiguous, dimension
+// i > 0 strides[i - 1] bytes apart; box[i] elements of each
+inline int make_map_nd(CUtensorMap* m, CUtensorMapDataType type,
+                       const void* ptr, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle swz) {
+  const EncodeFn enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (rank < 2 || rank > 5) return (int)cudaErrorInvalidValue;
+  cuuint64_t d[5], st[4];
+  cuuint32_t b[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    es[i] = 1;
+    if (i > 0) st[i - 1] = strides[i - 1];
+  }
+  const CUresult r = enc(m, type, rank, const_cast<void*>(ptr), d, st, b, es,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -1,18 +1,14 @@
-// Grouped-expert MoE FFN for Hopper (sm_90a), bf16 and dequant-fused.
+// Grouped-expert MoE FFN for Hopper (sm_90a), bf16.
 //
-// Replaces the two Pallas kernels of `repro/kernels/moe_ffn.py`:
+// Replaces the Pallas kernel `repro/kernels/moe_ffn.py` `make_kernel` (:35;
+// its pl.pallas_call at :90); its dequant-fused twin `make_qkernel` (:110)
+// is `quant_moe_ffn.cu`.
 //
-//   moe_ffn_bf16   <- `make_kernel`  (:35; its pl.pallas_call at :90)
-//   quant_moe_ffn  <- `make_qkernel` (:110; its pl.pallas_call at :190)
-//
-// What they compute, per expert e of the padded dispatch buffer:
+// What it computes, per expert e of the padded dispatch buffer:
 //   y[e] = ((silu(x[e] @ w1[e]) * (x[e] @ w3[e])) @ w2[e]) * comb[e][:, None]
 // with x (E, C, d) bf16, w1 / w3 (E, d, F), w2 (E, F, d), comb (E, C) f32
-// and y (E, C, d) f32.  The bf16 kernel rounds the (C, F) intermediate h
-// to bf16 once, as `moe_ffn.py:62` does; the dequant-fused kernel keeps h
-// in f32, as its Pallas twin does (:160-167), with int8 weights (scales
-// (E, 1, F) and (E, 1, d)) or int4 nibbles packed along the contraction
-// axis (scales (E, d/group, F) and (E, F/group, d)).
+// and y (E, C, d) f32.  The (C, F) intermediate h is rounded to bf16 once,
+// as `moe_ffn.py:62` does.
 //
 // The TPU design keeps a whole expert's panes in VMEM (w1 alone is
 // 2048 x 1408 bf16 = 5.8 MB at qwen2-moe's widths); a Hopper block has
@@ -22,7 +18,7 @@
 // expert group): y = (h @ w2) * comb.  Each block walks its experts' rows
 // in chunks of 32 and owns every contraction step of its tile, so nothing
 // is reduced across blocks: no atomics, and the result does not depend on
-// scheduling.  h goes through device memory (E*C*F bf16 or f32).
+// scheduling.  h goes through device memory (E*C*F bf16).
 //
 // Coarsening: a block owns `degree` experts, adjacent (consecutive:
 // e = i*degree + j) or E/degree apart (gapped: e = j*(E/degree) + i), as
@@ -36,8 +32,7 @@
 // bandwidth-bound far below the tensor-core ridge.  What the design does
 // about it: dead experts and dead 16-row tiles are skipped before any
 // weight byte is loaded; every live weight byte is read once (16-byte
-// loads, the next step's loads in flight during the current products),
-// packed weights stay packed until shared memory.
+// loads, the next step's loads in flight during the current products).
 #include "gemm_tile.cuh"
 
 namespace {
@@ -48,18 +43,14 @@ using namespace gt;
 // live expert holds ~8.5 rows in a prefill chunk (512 assignments over 60
 // experts) and at most 8 in a decode step, so one chunk covers it and the
 // dead chunks read nothing; the light blocks (64-93 registers) run several
-// to an SM.  Chunks of 128 rows (MT = 4, one block per SM) measured
-// 1.9x (bf16), 3.0x (int8) and 2.4x (int4) slower at capacity 128 on an
-// H100 80GB HBM3 at 700 W.
+// to an SM.  Chunks of 128 rows (MT = 4, one block per SM) measured 1.9x
+// slower at capacity 128 on an H100 80GB HBM3 at 700 W.
 constexpr int MOE_MT = 1;
 
-template <int BKIND>
 int run_chain(Params pa, Params pb, int e, int degree, cudaStream_t st) {
-  constexpr bool QUANT = BKIND != B_BF16;
-  int rc = launch<MOE_MT, 2, false, BKIND,
-                  QUANT ? EPI_SWIGLU_F32 : EPI_SWIGLU_BF16>(pa, e / degree, st);
+  int rc = launch<MOE_MT, 2, EPI_SWIGLU>(pa, e / degree, st);
   if (rc != 0) return rc;
-  return launch<MOE_MT, 1, QUANT, BKIND, EPI_COMB>(pb, e / degree, st);
+  return launch<MOE_MT, 1, EPI_COMB>(pb, e / degree, st);
 }
 
 int check_geometry(int e, int c, int d, int f, int degree) {
@@ -78,7 +69,6 @@ Params base_params(const void* x, const void* comb, void* out, int e, int c,
   p.rows = c;
   p.n = n;
   p.k = k;
-  p.group = 1;
   p.batch = e;
   p.degree = degree;
   p.gapped = gapped;
@@ -96,38 +86,9 @@ extern "C" int moe_ffn_bf16(const void* xe, const void* w1, const void* w3,
   if (int rc = check_geometry(e, c, d, f, degree)) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   Params pa = base_params(xe, comb, h, e, c, d, f, degree, gapped);
-  pa.w[0] = Weight{w1, nullptr, (long long)d * f, 0};
-  pa.w[1] = Weight{w3, nullptr, (long long)d * f, 0};
+  pa.w[0] = Weight{w1, (long long)d * f};
+  pa.w[1] = Weight{w3, (long long)d * f};
   Params pb = base_params(h, comb, out, e, c, f, d, degree, gapped);
-  pb.w[0] = Weight{w2, nullptr, (long long)f * d, 0};
-  return run_chain<B_BF16>(pa, pb, e, degree, st);
-}
-
-// int8: w1q/w3q (E,d,F) int8 + scales (E,1,F); w2q (E,F,d) + (E,1,d).
-// int4: w1q/w3q (E,d/2,F) uint8 + scales (E,d/group,F); w2q (E,F/2,d) +
-// (E,F/group,d).  h (E,C,F) f32 scratch; out (E,C,d) f32.
-extern "C" int quant_moe_ffn(const void* xe, const void* w1q, const void* w1s,
-                             const void* w3q, const void* w3s,
-                             const void* w2q, const void* w2s,
-                             const void* comb, void* h, void* out, int e,
-                             int c, int d, int f, int bits, int group,
-                             int degree, int gapped, void* stream) {
-  if (int rc = check_geometry(e, c, d, f, degree)) return rc;
-  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
-  if (bits == 4 && (group < 16 || group % 16 || d % group || f % group))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const long long qd = bits == 8 ? (long long)d * f : (long long)d / 2 * f;
-  const long long sd = bits == 8 ? f : (long long)(d / group) * f;
-  const long long qf = bits == 8 ? (long long)f * d : (long long)f / 2 * d;
-  const long long sf = bits == 8 ? d : (long long)(f / group) * d;
-  Params pa = base_params(xe, comb, h, e, c, d, f, degree, gapped);
-  pa.group = bits == 4 ? group : 1;
-  pa.w[0] = Weight{w1q, static_cast<const float*>(w1s), qd, sd};
-  pa.w[1] = Weight{w3q, static_cast<const float*>(w3s), qd, sd};
-  Params pb = base_params(h, comb, out, e, c, f, d, degree, gapped);
-  pb.group = pa.group;
-  pb.w[0] = Weight{w2q, static_cast<const float*>(w2s), qf, sf};
-  return bits == 8 ? run_chain<B_INT8>(pa, pb, e, degree, st)
-                   : run_chain<B_INT4>(pa, pb, e, degree, st);
+  pb.w[0] = Weight{w2, (long long)f * d};
+  return run_chain(pa, pb, e, degree, st);
 }
