@@ -2338,19 +2338,88 @@ def ew_stream_phase() -> dict:
                       bound, None)
 
 
+def outlier_ids(idx: torch.Tensor, table: int, seed: int) -> torch.Tensor:
+    """Locality-4096 ids with every 997th replaced by a random entry of the
+    table: most pieces' spans then outgrow the window, some do not."""
+    gen = torch.Generator(device=idx.device).manual_seed(seed)
+    out = idx.clone()
+    out[::997] = torch.randint(0, table, out[::997].shape, generator=gen,
+                               device=idx.device, dtype=torch.int32)
+    return out
+
+
+def staged_shares(paths: torch.Tensor, plan) -> tuple:
+    """(share of programs whose every element was served from the window,
+    share of elements so served)."""
+    owners = stream_owners(plan, paths.device)
+    per = torch.zeros(plan.grid, device=paths.device).index_add_(
+        0, owners, paths)
+    whole = plan.n // plan.grid
+    return float((per == whole).float().mean()), float(paths.mean())
+
+
+def span_off_by_one(idx, tables, staged, ai: int) -> torch.Tensor:
+    """Fault model: every lookup served from a staged span reads the entry
+    after its own (a span staged one entry off)."""
+    shifted = torch.where(staged, (idx.long() + 1).clamp(
+        max=tables[0].shape[0] - 1), idx.long())
+    return ref._arith_chain([t[shifted] for t in tables],
+                            ai * (len(tables) + 1))
+
+
+WALK_LABELS = ("base", "con4", "gap4", "simd4")   # path maps held to `walk`
+
+
 def gather_stream_phase() -> dict:
+    """Row 16 at the paper's cells plus the locality cell with outliers:
+    every label bit-equal to the plain version and launched twice
+    bit-equal, owner maps equal to the plans', the kernel's window
+    decisions (its path map) equal to `gather_stream.walk`'s for
+    `WALK_LABELS`, the share of programs staged, two fault models."""
     out = None
-    for tag, (table, window) in GATHERS.items():
+    cells = dict(GATHERS)
+    cells["locality 4096 with outliers"] = GATHERS["locality 4096"]
+    for tag, (table, window) in cells.items():
         idx, tables = fig11.gather_inputs(PAPER_N, table, window, "cuda",
                                           seed=SEED + 11)
+        if tag.endswith("outliers"):
+            idx = outlier_ids(idx, table, SEED + 12)
         want = ref.gather_stream(tables, idx, ai=PAPER_AI)
+        shares, staged_base = [], None
         for lab in bench.labels():
-            hold_equal(f"gather_stream {tag} {lab}", gs_mod.gather_stream(
-                idx, tables, lab, ai=PAPER_AI), want)
+            got = gs_mod.gather_stream(idx, tables, lab, ai=PAPER_AI)
+            hold_equal(f"gather_stream {tag} {lab}", got, want)
+            hold_equal(f"gather_stream {tag} {lab} (second launch)",
+                       gs_mod.gather_stream(idx, tables, lab, ai=PAPER_AI),
+                       got)
+            del got
             plan = plan_stream(PAPER_N, CoarseningConfig.parse(lab),
                                PAPER_BLOCK)
             hold_owners(f"gather_stream {lab}", gs_mod.gather_stream(
                 idx, tables, lab, probe=True), stream_owners(plan, "cuda"))
+            paths = gs_mod.gather_stream(idx, tables, lab, paths=True)
+            if lab in WALK_LABELS:
+                walked = gs_mod.walk(idx.cpu(), len(tables), table, lab,
+                                     block=PAPER_BLOCK).staged
+                if not torch.equal(paths.cpu(), walked.float()):
+                    raise SystemExit(f"gather_stream {tag} {lab}: the "
+                                     f"kernel's window decisions differ "
+                                     f"from gather_stream.walk's")
+            if lab == "base":
+                staged_base = paths.bool()
+            progs, elems = staged_shares(paths, plan)
+            shares.append(f"{lab} {progs:.4f}/{elems:.4f}")
+            del paths
+        print(f"gather_stream {tag}: programs / elements served from the "
+              f"window: " + ", ".join(shares), flush=True)
+        if tag == "locality 4096" and not bool(staged_base.all()):
+            raise SystemExit("gather_stream locality 4096: a base program "
+                             "read the tables directly")
+        faults = []
+        if bool(staged_base.any()):
+            faults.append(caught("a staged span read one entry off (base)",
+                                 span_off_by_one(idx, tables, staged_base,
+                                                 PAPER_AI), want))
         ms = time_ms(lambda: gs_mod.gather_stream(idx, tables, "base",
                                                   ai=PAPER_AI))
         plain_ms = time_ms(lambda: ref.gather_stream(tables, idx,
@@ -2358,8 +2427,11 @@ def gather_stream_phase() -> dict:
         bound = bench.bound_ms(bench.gather_bytes(idx, len(tables)),
                                PAPER_N * PAPER_AI * 9)
         print(f"gather_stream {tag} (N 2^26, 8 tables of {table}): every "
-              f"label bit-equal to the plain version, owner maps equal the "
-              f"plans'; base kernel {ms:.4f} ms | bound {bound[0]:.4f} ms "
+              f"label bit-equal to the plain version and to a second "
+              f"launch, owner maps equal the plans', window decisions "
+              f"equal gather_stream.walk's ({', '.join(WALK_LABELS)})"
+              + (f"; fault models: {'; '.join(faults)}" if faults else "")
+              + f"; base kernel {ms:.4f} ms | bound {bound[0]:.4f} ms "
               f"({bound[1]}) | plain {plain_ms:.4f} ms | library none",
               flush=True)
         if out is None:            # the JSON line keeps fig8's locality
@@ -2367,7 +2439,7 @@ def gather_stream_phase() -> dict:
                              "src/repro_torch/kernels/csrc/stream.cu",
                              "src/repro/kernels/gather_stream.py:65", 0.0,
                              ms, plain_ms, bound, None)
-        del idx, tables, want
+        del idx, tables, want, staged_base
     return out
 
 
@@ -2481,7 +2553,8 @@ def embed_gather_phase(gen: torch.Generator) -> dict:
     d 1024), float32 and bf16 tables: every label bit-equal to the plain
     version (among the ids some past the table, some in [-V, 0) and
     some below -V, read as the Pallas body's index reads them), owner
-    maps equal to the plan's, two fault models caught, then the times."""
+    maps equal to the plan's, each label launched twice bit-equal, three
+    fault models caught, then the times of every label."""
     spec = model_specs(get_config("qwen3-0.6b"), seq=MAX_LEN, batch=SLOTS,
                        page_size=PAGE)["embed_gather"]
     n, vocab, d = spec.shape
@@ -2494,27 +2567,58 @@ def embed_gather_phase(gen: torch.Generator) -> dict:
     for tab in (table, table.bfloat16()):
         want = ref.embed_gather(ids, tab)
         for lab in EMBED_LABELS:
-            hold_equal(f"embed_gather {tab.dtype} {lab}",
-                       eg_mod.embed_gather(ids, tab, lab), want)
+            got = eg_mod.embed_gather(ids, tab, lab)
+            hold_equal(f"embed_gather {tab.dtype} {lab}", got, want)
+            hold_equal(f"embed_gather {tab.dtype} {lab} (second launch)",
+                       eg_mod.embed_gather(ids, tab, lab), got)
+            del got
         print(f"embed_gather ({n} ids, {tab.dtype} table {vocab} x {d}): "
-              f"every label bit-equal to the plain version", flush=True)
+              f"every label bit-equal to the plain version and to a "
+              f"second launch", flush=True)
         del want
     for lab in EMBED_LABELS:
         plan = plan_stream(n, CoarseningConfig.parse(lab), eg_mod.BLOCK)
-        hold_owners(f"embed_gather {lab}",
-                    eg_mod.embed_gather(ids, table, lab, probe=True),
-                    stream_owners(plan, "cuda")[:, None].expand(n, d))
-    print("embed_gather: the owner map of every label equals its plan's",
-          flush=True)
+        for tab in (table, table.bfloat16()):
+            hold_owners(f"embed_gather {tab.dtype} {lab}",
+                        eg_mod.embed_gather(ids, tab, lab, probe=True),
+                        stream_owners(plan, "cuda")[:, None].expand(n, d))
+    print("embed_gather: the owner map of every label equals its plan's "
+          "(float32: the bulk-copy path; bf16: the lane path)", flush=True)
+    # a float32 table whose block rows outgrow the bulk budget takes the
+    # lane path: d 4096 (8 rows of 16 KB a block)
+    wide = torch.randn((8192, 4096), generator=gen, device="cuda")
+    wide_ids = torch.randint(0, 8192, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    want = ref.embed_gather(wide_ids, wide)
+    for lab in EMBED_LABELS:
+        got = eg_mod.embed_gather(wide_ids, wide, lab)
+        hold_equal(f"embed_gather wide float32 {lab}", got, want)
+        hold_equal(f"embed_gather wide float32 {lab} (second launch)",
+                   eg_mod.embed_gather(wide_ids, wide, lab), got)
+        del got
+    print(f"embed_gather ({n} ids, float32 table 8192 x 4096, the lane "
+          f"path): every label bit-equal to the plain version and to a "
+          f"second launch", flush=True)
+    del wide, wide_ids, want
     want = ref.embed_gather(ids, table)
     # an id block read from its neighbour: block 0 takes block 1's ids
     shifted = ids.clone()
     shifted[:eg_mod.BLOCK] = ids[eg_mod.BLOCK:2 * eg_mod.BLOCK]
     gap = plan_stream(n, CoarseningConfig.parse("gap4"), eg_mod.BLOCK)
     swapped = eg_mod.embed_gather(ids, table, "con4", probe=True)
+    # a block's share one row late: block 1 of program 0 (base) writes
+    # rows [R, 2R) from the ids of rows [R + 1, 2R + 1)
+    split = eg_mod.split_plan(n, BASE, sms=torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    late = ids.clone()
+    late[split.rows:2 * split.rows] = ids[split.rows + 1:2 * split.rows + 1]
+    print(f"embed_gather split at base: {split.per_program} blocks a "
+          f"program of {split.rows} rows, grid {split.grid}", flush=True)
     print("embed_gather fault models: "
           + caught("id block 0 read from block 1",
                    ref.embed_gather(shifted, table), want) + "; "
+          + caught("block 1's share shifted by one row",
+                   ref.embed_gather(late, table), want) + "; "
           + caught("con4 and gap4 swapped (owner map against gap4's plan)",
                    swapped, stream_owners(gap, "cuda").float()[:, None]
                    .expand(n, d).contiguous()), flush=True)
@@ -2527,10 +2631,13 @@ def embed_gather_phase(gen: torch.Generator) -> dict:
         # F.embedding asserts on ids outside the table: in-range ids
         lib_ms = time_ms(lambda: torch.nn.functional.embedding(inside, tab))
         bound = bench.bound_ms(4 * n + n * d * elem + 4 * n * d, 0)
+        labs = ", ".join(
+            f"{lab} {time_ms(lambda: eg_mod.embed_gather(ids, tab, lab)):.4f}"
+            for lab in EMBED_LABELS[1:])
         print(f"embed_gather timing (base, {n} ids, {tab.dtype} table): "
               f"kernel {ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) "
-              f"| plain {plain_ms:.4f} ms | F.embedding {lib_ms:.4f} ms",
-              flush=True)
+              f"| plain {plain_ms:.4f} ms | F.embedding {lib_ms:.4f} ms; "
+              f"the other labels: {labs} ms", flush=True)
         rows[tab.dtype] = (ms, plain_ms, bound, lib_ms)
     del table, want, swapped
     gc.collect()

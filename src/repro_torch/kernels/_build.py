@@ -71,7 +71,7 @@ SIGNATURES = {
     },
     "stream": {
         "ew_stream_f32": [_P, _I, _P, _L] + [_I] * 8 + [_P],
-        "gather_stream_f32": [_P, _P, _I, _P, _L] + [_I] * 7 + [_P],
+        "gather_stream_f32": [_P, _P, _I, _P, _L] + [_I] * 11 + [_P],
     },
     "stencil": {
         "stencil5_f32": [_P] * 2 + [_I] * 8 + [_P],
@@ -80,7 +80,7 @@ SIGNATURES = {
         "dp_scan_f32": [_P] * 2 + [_I] * 3 + [_P],
     },
     "embed_gather": {
-        "embed_gather": [_P] * 3 + [_I] * 8 + [_P],
+        "embed_gather": [_P] * 3 + [_I] * 9 + [_P],
     },
     "ssd": {
         "ssd_f32": [_P] * 7 + [_I] * 10 + [_P],
