@@ -59,11 +59,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (row 1, the rows kernel at T = 1, verify's call with pos0 = pos) for
    every label, with and without a window, and at recurrentgemma-2b's G 10
    (one kv head, D 256; bf16 and int8 pools, two launches bit-equal). The
-   row norm of the decode and verify steps at their shapes (ln over d
-   1024, the q and k norms over hd 128; 8 and 40 rows), each element
-   within 1 bf16 ulp of its plain version, launched twice bit-equal,
-   lane 0's values lost from the sum of squares shown to exceed it, and
-   timed beside `F.rms_norm`. The qwen2-moe-a2.7b kernels: the int8-pool paged decode, the grouped-expert
+   row norm of the decode and verify steps (an MoE layer's ln2: d 2048,
+   8 and 40 rows; also d 1024 and hd 128), each element within 1 bf16 ulp
+   of its plain version, launched twice bit-equal, lane 0's values lost
+   from the sum of squares shown to exceed it, and timed beside
+   `F.rms_norm`. The steps' norms folded into what reads them: every
+   normed step product (qwen3-0.6b's q, k, v, gate, up and tied head,
+   qwen2-moe's q, k, v; M 8 and 40, rows of unlike magnitudes, launched
+   twice) bit-equal to the row norm then `step_matmul` and within
+   `normed_limit` of `ref.rmsnorm` then `ref.matmul`, and `qk_norm_rope`
+   bit-equal to the row norm per head then `apply_rope` and within
+   `rope_limit` of `ref.qk_norm_rope` at every position in [0, 1024)
+   (qwen3 norm on and off, qwen2-moe RoPE only; int32 and int64
+   positions), RoPE alone bit-equal to `apply_rope` at every position
+   below 2^19 for each (head dim, theta) of the configurations, each
+   comparison shown to catch fault models against both references (the
+   scale read one 16-byte chunk off, a neighbouring row's r, a swapped
+   rotation pair, pos + 1), each timed beside the unfused sequence with
+   a call's host time. The
+   qwen2-moe-a2.7b kernels: the int8-pool paged decode, the grouped-expert
    MoE FFN (capacities 128 and 8), its dequant-fused twin (int8 and int4;
    also on a mixed dispatch, each case launched twice bit-equal, with a
    dropped K stage, a skipped live tile, swapped nibbles and scales a group
@@ -118,8 +132,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one 64-row tile; the bf16 store the steps run, and the float32 sums),
    the norm over d and the qk-norm over hd on the row norm, each beside
    the torch op it replaced (a probe, reported: the products, and the
-   float32 statistic mean(x^2) of the torch norm), RoPE and SiLU*up
-   (elementwise torch ops the steps keep), and the paged attention at
+   float32 statistic mean(x^2) of the torch norm), the normed products
+   and `qk_norm_rope`, SiLU*up (an elementwise torch op the steps keep),
+   and the paged attention at
    T = 1 against T = 5 (bf16 and int8 pools); any op of the steps that
    parts fails the run.  Then each route product at M 8 and M 40 (ragged
    rows, the bf16 store, the tied head read K-major) against its plain
@@ -147,10 +162,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    seeded torch.Generator) through `Scheduler` over `PagedEngine`: 16
    requests, an undersized pool that forces preemption.  The launch counts
    are zeroed just before this run and read just after it: 28 paged decode
-   launches, 113 of the row norm (ln1, ln2, the q and k norms of 28
-   layers and the final norm) and 197 of row 2 (q, k, v, o, gate, up and
-   down of 28 layers and the head, the steps' route) a decode step, 84 of
-   row 2 a full prefill chunk.  Then the same trace through the plain paths, and one full-width `lm_decode_step` on a
+   launches, 197 of row 2 (q, k, v, o, gate, up and down of 28 layers and
+   the head, the steps' route; 141 of them with the norm prologue: q, k,
+   v, gate, up and the head), 28 of `qk_norm_rope` and none of the row
+   norm a decode step, 84 of row 2 a full prefill chunk.  Then the same trace through the plain paths, and one full-width `lm_decode_step` on a
    shared cache, kernel path against plain path.  From the same weights
    (phases ``contig`` and ``spec``, each in a process of its own that
    runs beside these serve runs, and whose output is printed, tagged, when
@@ -161,8 +176,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a verify-vs-decode check on bf16 and on int8 pools (row t of
    `lm_verify_step` against `lm_decode_step` at pos0 + t, kernel path, 16
    draws of random draft tokens: every row and the pools each pass leaves
-   behind bit for bit, 197 launches of row 2, 113 of the row norm and 28
-   of the rows kernel a step, a shifted mask shown to part); and 8 requests of 32 tokens
+   behind bit for bit, 197 launches of row 2 (141 normed), 28 of
+   `qk_norm_rope` and 28 of the rows kernel a step, none of the row norm,
+   a shifted mask shown to part); and 8 requests of 32 tokens
    through `Scheduler` over `SpecPagedEngine` (K 4, an undersized pool)
    four times: a `draft_of` draft, a self draft, a `draft_of` draft whose
    tie guard voids every verify row, and a `draft_of` draft on int8 KV
@@ -209,8 +225,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    24 MoE launches per prefill chunk and decode step, 24 decode launches
    per decode step, 169 launches of row 2 per decode step (q, k, v, o and
    the shared FFN of 24 layers and the head, the steps' route, weights
-   dequantized first under int8), 49 of the row norm per decode step and
-   72 shared-FFN launches per full prefill chunk are checked.  One full-width `lm_decode_step`, kernel path against plain
+   dequantized first under int8; 73 of them with the norm prologue: q, k,
+   v and the head), 24 of the row norm (ln2) and 24 of `qk_norm_rope`
+   (RoPE only) per decode step and 72 shared-FFN launches per full
+   prefill chunk are checked.  One full-width `lm_decode_step`, kernel path against plain
    path.
 7. paper — the figure sweeps `repro_torch.bench.fig8_apps`, `fig11_ai`,
    `fig10_mem_divergence` and `fig13_divdeg` at the paper's sizes, every
@@ -256,7 +274,7 @@ from repro_torch.bench import (fig8_apps, fig10_mem_divergence,  # noqa: E402
 from repro_torch.bench import fig11_ai as fig11  # noqa: E402
 from repro_torch.bench.common import (BF16_FLOPS, FP32_FLOPS,  # noqa: E402
                                       HBM_BYTES_PER_S, smi_line, time_ms)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, SHAPES, get_config  # noqa: E402
 from repro_torch.core.coarsening import (BASE,  # noqa: E402
                                          KIND_GAPPED, CoarseningConfig,
                                          plan_rows, plan_stream, resolve,
@@ -619,7 +637,8 @@ def matmul_phase(gen: torch.Generator) -> dict:
               f"{time_ms(lambda: torch.matmul(a, b)):.4f} | torch.mm f32 out "
               f"{f32} | S {plan.splits}, grid {plan.grid} = {plan.blocks} "
               f"blocks on {sms} SMs | build: "
-              f"{build_line('matmul', 'cmm_kernelILi1ELi1E')}", flush=True)
+              f"{build_line('matmul', 'cmm_kernelILi1ELi1ELb0ELb0E')}",
+              flush=True)
     a, b = ops_[0]
     print(f"matmul host time of one call (128x1024)@(1024x3072): kernel "
           f"{host_us(lambda: ops.matmul(a, b)):.1f} us | torch.matmul "
@@ -649,22 +668,25 @@ def matmul_phase(gen: torch.Generator) -> dict:
             "library_ms": f32_ms if has_f32 else lib_ms}
 
 
-# -- phase 3: the row norm of the decode and verify steps ---------------------
+# -- phase 3: the row norm of the decode and verify steps (MoE ln2) -----------
 
 def rmsnorm_phase(gen: torch.Generator) -> dict:
-    """The row norm (`kernels/rmsnorm.py`, added for batch invariance) at a
-    qwen3-0.6b decode step's shapes (ln over d 1024, the q and k norms over
-    hd 128) and a verify pass's (K 4), each launched twice and bit-equal,
-    every element within 1 bf16 ulp (2^-7 of its magnitude) of the plain
-    version (the two sum the squares in other orders); a model of lane
-    0's values lost from the sum of squares must exceed it.  Timed at one
-    ln call of a decode step."""
-    cfg = get_config("qwen3-0.6b")
+    """The row norm (`kernels/rmsnorm.py`, added for batch invariance; since
+    the norms a product reads became that product's prologue, an MoE
+    layer's ln2 alone) at a qwen2-moe-a2.7b decode step's shape (ln2 over d
+    2048, 8 rows) and a verify pass's (K 4), and at qwen3-0.6b's d 1024 and
+    hd 128, each launched twice and bit-equal, every element within 1 bf16
+    ulp (2^-7 of its magnitude) of the plain version (the two sum the
+    squares in other orders); a model of lane 0's values lost from the sum
+    of squares must exceed it.  Timed at one ln2 call of a qwen2-moe
+    decode step."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    small = get_config("qwen3-0.6b")
     worst = 0.0
     for rows_, d in ((SLOTS, cfg.d_model), (SLOTS * (SPEC_K + 1),
                                             cfg.d_model),
-                     (SLOTS * cfg.n_heads, cfg.hd),
-                     (SLOTS * (SPEC_K + 1) * cfg.n_kv_heads, cfg.hd)):
+                     (SLOTS, small.d_model), (SLOTS * small.n_heads,
+                                              small.hd)):
         x = (4 * torch.randn(rows_, d, generator=gen, device="cuda")
              ).bfloat16()
         sc = 0.1 * torch.randn(d, generator=gen, device="cuda")
@@ -703,7 +725,8 @@ def rmsnorm_phase(gen: torch.Generator) -> dict:
     lib_ms = time_ms(lambda: F.rms_norm(x, (cfg.d_model,), weight=w1,
                                         eps=cfg.norm_eps)) \
         if hasattr(F, "rms_norm") else None
-    print(f"rmsnorm timing ({SLOTS}x{cfg.d_model}, a decode step's ln): "
+    print(f"rmsnorm timing ({SLOTS}x{cfg.d_model}, a qwen2-moe decode "
+          f"step's ln2): "
           f"kernel {ms:.4f} ms | bound {bms:.4f} ms ({by}) | plain "
           f"{plain_ms:.4f} ms | F.rms_norm (weight 1 + scale) "
           f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'} | host "
@@ -716,6 +739,313 @@ def rmsnorm_phase(gen: torch.Generator) -> dict:
             "replaces": "src/repro/models/layers.py:87",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+# -- phase 3: the steps' norms folded into what reads them --------------------
+
+def normed_weights(gen: torch.Generator) -> dict:
+    """Every product of a step that takes a norm prologue, with random bf16
+    weights of its shape: qwen3-0.6b's q, k, v, gate, up and tied head
+    (K-major), qwen2-moe-a2.7b's q, k, v (K 2048)."""
+    q3, moe = get_config("qwen3-0.6b"), get_config("qwen2-moe-a2.7b")
+
+    def w(k, n):
+        return (torch.randn(k, n, generator=gen, device="cuda")
+                / math.sqrt(k)).bfloat16()
+    out = {}
+    for tag, c in (("qwen3", q3), ("qwen2-moe", moe)):
+        d, hd = c.d_model, c.hd
+        out.update({f"{tag} q": w(d, c.n_heads * hd),
+                    f"{tag} k": w(d, c.n_kv_heads * hd),
+                    f"{tag} v": w(d, c.n_kv_heads * hd)})
+    out["qwen3 gate"] = w(q3.d_model, q3.d_ff)
+    out["qwen3 up"] = w(q3.d_model, q3.d_ff)
+    out["qwen3 head"] = (0.02 * torch.randn(
+        q3.vocab_padded, q3.d_model, generator=gen, device="cuda")
+    ).bfloat16().T
+    return out
+
+
+def neighbour_r(x, sc, eps):
+    """Fault model: each row normed with the next row's statistic."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * r.roll(1, 0) * (1 + sc)).bfloat16()
+
+
+def swapped_pairs(x, pos, theta):
+    """Fault model: RoPE with each pair's two values swapped."""
+    pairs = x.reshape(*x.shape[:-1], -1, 2).flip(-1).reshape(x.shape)
+    return L.apply_rope(pairs, pos, theta)
+
+
+def ulps_of(a: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of ``a`` (0 where a is 0)."""
+    a = a.float().abs()
+    return torch.where(a == 0, torch.zeros_like(a), bf16_ulp(a))
+
+
+def normed_limit(a, w, want32):
+    """How far a normed product in bf16 may lie from its plain version
+    bf16(``want32`` = ``a`` @ ``w``), ``a`` the plain row norm's output:
+    the kernel's normed A may round one bf16 ulp the other way (its sums
+    of squares run in another order), which |w| carries into the sums;
+    the f32 sums' order (`mm_tol`); one bf16 ulp of the result."""
+    d32 = mm_tol(a.shape[1], want32.abs().max().item()) \
+        + ref.matmul(ulps_of(a), w.float().abs())
+    return bf16_ulp(want32.abs() + d32) + d32
+
+
+def rope_limit(h, plain):
+    """How far `qk_norm_rope`'s output may lie from its plain version
+    ``plain``, ``h`` the plain per-head norm's output (None: RoPE only,
+    the same inputs): a normed value one bf16 ulp off moves each element
+    of its rotated pair by at most that ulp (|cos|, |sin| <= 1); one bf16
+    ulp of the result."""
+    if h is None:
+        return bf16_ulp(plain.float().abs())
+    u = ulps_of(h)
+    pair = (u[..., ::2] + u[..., 1::2]).repeat_interleave(2, -1)
+    return bf16_ulp(plain.float().abs() + pair) + pair
+
+
+# RoPE's positions held bit for bit: every position of the longest shape
+# the configurations are assigned (`configs.SHAPES`, long_500k)
+ROPE_POSITIONS = max(v["seq"] for v in SHAPES.values())
+
+
+def step_norms_phase(gen: torch.Generator) -> list:
+    """The norm prologue of row 2's step products (`matmul.step_matmul`
+    with ``norm``) and `rmsnorm.qk_norm_rope`.  Each normed product shape
+    (`normed_weights`) at M 8 and M 40, its rows of unlike magnitudes (2^-3
+    to 2^3 times a draw, as a step's hidden states): bit-equal to the row
+    norm kernel then `step_matmul`, launched twice bit-equal, and within
+    `normed_limit` of its plain version (`ref.rmsnorm` then `ref.matmul`,
+    rounded to bf16).  `qk_norm_rope` at every position in [0, MAX_LEN) for
+    qwen3-0.6b's q and k heads, norm on and off, and qwen2-moe's (RoPE
+    only), int32 and int64 positions: bit-equal to the row norm per head
+    then `layers.apply_rope` and within `rope_limit` of `ref.qk_norm_rope`;
+    RoPE alone at every position below `ROPE_POSITIONS` for each (head
+    dim, theta) of the configurations, bit-equal to `layers.apply_rope`
+    (the kernel's cosf / sinf against torch.cos / torch.sin).  Each
+    comparison is shown to catch fault models, against both references: the
+    scale read one 16-byte chunk off and a neighbouring row's r
+    (products), a swapped rotation pair and pos + 1 (RoPE).  Device ms and
+    host us a call beside the unfused sequence (the products at M 8 and M
+    40); the instances' registers and local memory."""
+    eps = 1e-6
+    bad = []
+    worst = {"mm": 0.0, "qk": 0.0}           # largest |fused - plain|
+    for name, local, regs in mm_mod.instances():
+        if name.endswith(", true>"):          # the norm prologue's
+            kb = int(name.endswith("true, true>"))
+            print(f"normed product instance {name}: {regs} registers, "
+                  f"{local} bytes of local memory a thread; build: "
+                  f"{build_line('matmul', f'cmm_kernelILi1ELi1ELb{kb}ELb1E')}",
+                  flush=True)
+    ws = normed_weights(gen)
+    sms = mm_mod.sm_count(torch.device("cuda"))
+    for name, w in ws.items():
+        k, n = w.shape
+        sc = 0.1 * torch.randn(k, generator=gen, device="cuda")
+        for m in (INV_ROWS, INV_BATCH):
+            x = (3 * torch.randn(m, k, generator=gen, device="cuda")
+                 * torch.exp2(torch.randint(-3, 4, (m, 1), generator=gen,
+                                            device="cuda").float())
+                 ).bfloat16()
+            got = mm_mod.step_matmul(x, w, torch.bfloat16, norm=(sc, eps))
+            again = mm_mod.step_matmul(x, w, torch.bfloat16, norm=(sc, eps))
+            want = mm_mod.step_matmul(norm_mod.rmsnorm(x, sc, eps), w,
+                                      torch.bfloat16)
+            a = ref.rmsnorm(x, sc, eps)
+            want32 = ref.matmul(a, w)
+            plain, lim = want32.bfloat16().float(), normed_limit(a, w, want32)
+            faults = {
+                "scale one 16-byte chunk off": mm_mod.step_matmul(
+                    norm_mod.rmsnorm(x, sc.roll(-4), eps), w,
+                    torch.bfloat16),
+                "a neighbouring row's r": mm_mod.step_matmul(
+                    neighbour_r(x, sc, eps), w, torch.bfloat16)}
+            torch.cuda.synchronize()
+
+            def ratio(y):
+                return ((y.float() - plain).abs() / lim).max().item()
+            same, twice = torch.equal(got, want), torch.equal(got, again)
+            r = ratio(got)
+            caught_ = {f: (not torch.equal(v, want), round(ratio(v), 1))
+                       for f, v in faults.items()}
+            plan = mm_mod.step_plan(m, n, k, sms, norm=True)
+            print(f"normed product {name} at M {m} ({m}x{k})@({k}x{n}), "
+                  f"{'K-major' if not w.is_contiguous() else 'MN-major'}, "
+                  f"S {plan.splits}, grid {plan.grid}, cluster "
+                  f"{plan.splits}x{plan.cluster_y}: bit-equal to row norm "
+                  f"-> step_matmul: {same}; two launches bit-equal: {twice}; "
+                  f"max |fused - plain| / limit {r:.3f}; fault models "
+                  f"(parts from the unfused pair, / limit): {caught_}",
+                  flush=True)
+            if not (same and twice and r <= 1):
+                bad.append(f"normed product {name} M {m}")
+            if not all(p_ and fr > 1 for p_, fr in caught_.values()):
+                bad.append(f"normed product {name} M {m}: a fault model "
+                           f"does not part")
+            worst["mm"] = max(worst["mm"],
+                              (got.float() - plain).abs().max().item())
+        for m in (INV_ROWS, INV_BATCH):
+            x = (3 * torch.randn(m, k, generator=gen, device="cuda")
+                 ).bfloat16()
+
+            def fused():
+                return mm_mod.step_matmul(x, w, torch.bfloat16,
+                                          norm=(sc, eps))
+
+            def unfused():
+                return mm_mod.step_matmul(norm_mod.rmsnorm(x, sc, eps), w,
+                                          torch.bfloat16)
+
+            def plain():
+                return ref.matmul(ref.rmsnorm(x, sc, eps), w).bfloat16()
+            ms, un_ms, alone_ms = (time_ms(fused), time_ms(unfused), time_ms(
+                lambda: mm_mod.step_matmul(x, w, torch.bfloat16)))
+            bms, by = bound(2 * m * k + 2 * k * n + 2 * m * n + 4 * k,
+                            2 * m * n * k)
+            plain_ms = time_ms(plain)
+            print(f"normed product {name} timing (M {m}): fused {ms:.4f} ms "
+                  f"| row norm -> step_matmul {un_ms:.4f} ms | the product "
+                  f"alone {alone_ms:.4f} ms | bound {bms:.4f} ms ({by}) | "
+                  f"plain {plain_ms:.4f} ms | host {host_us(fused):.1f} us a "
+                  f"call, unfused {host_us(unfused):.1f} us", flush=True)
+            if m == INV_ROWS:
+                row_ms = (ms, plain_ms, bms, by)
+        if name == "qwen3 q":
+            mm_at = row_ms
+    # qk_norm_rope at every position of [0, MAX_LEN)
+    for tag, arch, norms in (("qwen3", "qwen3-0.6b", (True, False)),
+                             ("qwen2-moe", "qwen2-moe-a2.7b", (False,))):
+        c = get_config(arch)
+        freqs = ref.rope_freqs(c.hd, c.rope_theta, "cuda")
+        pos = torch.arange(MAX_LEN, device="cuda").reshape(-1, SLOTS)
+        for pdt in (torch.int32, torch.int64):
+            p_ = pos.to(pdt)
+            q = (3 * torch.randn(*pos.shape, c.n_heads, c.hd, generator=gen,
+                                 device="cuda")).bfloat16()
+            k = (3 * torch.randn(*pos.shape, c.n_kv_heads, c.hd,
+                                 generator=gen, device="cuda")).bfloat16()
+            qs = 0.1 * torch.randn(c.hd, generator=gen, device="cuda")
+            ks = 0.1 * torch.randn(c.hd, generator=gen, device="cuda")
+            for norm in norms:
+                a, b = (qs, ks) if norm else (None, None)
+                got = norm_mod.qk_norm_rope(q, k, p_, a, b, eps,
+                                            c.rope_theta)
+                again = norm_mod.qk_norm_rope(q, k, p_, a, b, eps,
+                                              c.rope_theta)
+                hq, hk = ((norm_mod.rmsnorm(q, qs, eps),
+                           norm_mod.rmsnorm(k, ks, eps)) if norm else (q, k))
+                want = (L.apply_rope(hq, p_, c.rope_theta),
+                        L.apply_rope(hk, p_, c.rope_theta))
+                plain = ref.qk_norm_rope(q, k, p_, a, b, eps, freqs)
+                lims = [rope_limit(ref.rmsnorm(x, s_, eps) if norm else None,
+                                   pl)
+                        for x, s_, pl in ((q, qs, plain[0]),
+                                          (k, ks, plain[1]))]
+                faults = {
+                    "a swapped rotation pair": (
+                        swapped_pairs(hq, p_, c.rope_theta),
+                        swapped_pairs(hk, p_, c.rope_theta)),
+                    "pos + 1": norm_mod.qk_norm_rope(q, k, p_ + 1, a, b, eps,
+                                                     c.rope_theta)}
+                torch.cuda.synchronize()
+
+                def ratio(outs):
+                    return max(((o.float() - pl.float()).abs() / lm).max()
+                               .item() for o, pl, lm in
+                               zip(outs, plain, lims))
+                same = all(map(torch.equal, got, want))
+                twice = all(map(torch.equal, got, again))
+                r = ratio(got)
+                parts = [int((g != w_).sum()) for g, w_ in zip(got, want)]
+                caught_ = {f: (not all(map(torch.equal, v, want)),
+                               round(ratio(v), 1))
+                           for f, v in faults.items()}
+                print(f"qk_norm_rope {tag} ({c.n_heads}/{c.n_kv_heads} heads, "
+                      f"D {c.hd}, theta {c.rope_theta:g}, {pdt}, "
+                      f"{'qk-norm' if norm else 'RoPE only'}), positions 0.."
+                      f"{MAX_LEN - 1}: bit-equal to row norm -> apply_rope: "
+                      f"{same} (q, k elements parting {parts}); two launches "
+                      f"bit-equal: {twice}; max |kernel - plain| / limit "
+                      f"{r:.3f}; fault models (parts from row norm -> "
+                      f"apply_rope, / limit): {caught_}", flush=True)
+                if not (same and twice and r <= 1):
+                    bad.append(f"qk_norm_rope {tag} {pdt} norm {norm}")
+                if not all(p2 and fr > 1 for p2, fr in caught_.values()):
+                    bad.append(f"qk_norm_rope {tag}: a fault model does not "
+                               f"part")
+                worst["qk"] = max(worst["qk"], max(
+                    (o.float() - pl.float()).abs().max().item()
+                    for o, pl in zip(got, plain)))
+    # RoPE alone at every position of the longest shape, each (head dim,
+    # theta) of the configurations: the kernel's cosf / sinf
+    for hd, theta in sorted({(c.hd, float(c.rope_theta)) for c in
+                             map(get_config, ARCHS)
+                             if c.mrope_sections is None
+                             and norm_mod.qk_takes(c.hd)}):
+        pos = torch.arange(ROPE_POSITIONS, device="cuda")[:, None]
+        q = torch.randn(ROPE_POSITIONS, 1, hd, generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn(ROPE_POSITIONS, 1, hd, generator=gen,
+                        device="cuda").bfloat16()
+        got = norm_mod.qk_norm_rope(q, k, pos, None, None, eps, theta)
+        want = (L.apply_rope(q[:, None], pos, theta)[:, 0],
+                L.apply_rope(k[:, None], pos, theta)[:, 0])
+        parts = [int((g != w_).sum()) for g, w_ in zip(got, want)]
+        print(f"qk_norm_rope RoPE only, D {hd}, theta {theta:g}, positions "
+              f"0..{ROPE_POSITIONS - 1}: bit-equal to apply_rope: "
+              f"{not any(parts)} (q, k elements parting {parts})",
+              flush=True)
+        if any(parts):
+            bad.append(f"qk_norm_rope D {hd} theta {theta:g}: cosf / sinf "
+                       f"part from torch.cos / torch.sin")
+        del q, k, got, want
+    ms, plain_ms, bms, by = mm_at
+    mm_row = kernel_row(
+        "coarsened_matmul_norm", "src/repro_torch/kernels/csrc/matmul.cu",
+        "src/repro/kernels/matmul.py:69", worst["mm"], ms, plain_ms,
+        (bms, by), None)
+    c = get_config("qwen3-0.6b")
+    q = torch.randn(SLOTS, 1, c.n_heads, c.hd, generator=gen,
+                    device="cuda").bfloat16()
+    k = torch.randn(SLOTS, 1, c.n_kv_heads, c.hd, generator=gen,
+                    device="cuda").bfloat16()
+    pos = torch.randint(64, MAX_LEN, (SLOTS, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    qs = 0.1 * torch.randn(c.hd, generator=gen, device="cuda")
+    ks = 0.1 * torch.randn(c.hd, generator=gen, device="cuda")
+
+    def fused_qk():
+        return norm_mod.qk_norm_rope(q, k, pos, qs, ks, eps, c.rope_theta)
+
+    def unfused_qk():
+        return (L.apply_rope(norm_mod.rmsnorm(q, qs, eps), pos, c.rope_theta),
+                L.apply_rope(norm_mod.rmsnorm(k, ks, eps), pos, c.rope_theta))
+
+    def plain_qk():
+        return ref.qk_norm_rope(q, k, pos, qs, ks, eps,
+                                ref.rope_freqs(c.hd, c.rope_theta, "cuda"))
+    ms, un_ms, plain_ms = (time_ms(fused_qk), time_ms(unfused_qk),
+                           time_ms(plain_qk))
+    el = q.numel() + k.numel()
+    bms, by = bound(4 * el + 4 * 2 * c.hd + 2 * c.hd + 4 * SLOTS, 0)
+    print(f"qk_norm_rope timing (a qwen3-0.6b decode step: {SLOTS} rows, "
+          f"{c.n_heads}/{c.n_kv_heads} heads, D {c.hd}): kernel {ms:.4f} ms | "
+          f"row norm x2 -> apply_rope x2 {un_ms:.4f} ms | bound {bms:.4f} ms "
+          f"({by}) | plain {plain_ms:.4f} ms | host {host_us(fused_qk):.1f} "
+          f"us a call, unfused {host_us(unfused_qk):.1f} us", flush=True)
+    qk_row = kernel_row("qk_norm_rope", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/models/layers.py:103", worst["qk"], ms,
+                        plain_ms, (bms, by), None)
+    if bad:
+        raise SystemExit(f"the steps' fused norms part from the sequences "
+                         f"they replace or from their plain versions: {bad}")
+    return [mm_row, qk_row]
 
 
 # -- phase 3: flash attention (forward, dQ, dK/dV) ---------------------------
@@ -3090,13 +3420,15 @@ def serve_phase() -> dict:
     # a shorter chunk's products are plain)
     want = {"paged_decode_attention": cfg.n_layers * steps,
             "rmsnorm": step_norms(cfg) * steps,
+            "coarsened_matmul_norm": step_normed(cfg) * steps,
+            "qk_norm_rope": cfg.n_layers * steps,
             "coarsened_matmul": step_products(cfg) * steps
             + 3 * cfg.n_layers * chunks}
     print(f"kernel launches on the served path: "
           f"{ {k: counts[k] for k in want} } over {steps} decode steps and "
-          f"{chunks} full prefill chunks ({step_products(cfg)} matmul, "
-          f"{step_norms(cfg)} row norm and {cfg.n_layers} paged decode a "
-          f"step, {3 * cfg.n_layers} matmul a chunk: {want})", flush=True)
+          f"{chunks} full prefill chunks ({step_counts(cfg)} and "
+          f"{cfg.n_layers} paged decode a step, {3 * cfg.n_layers} matmul a "
+          f"chunk: {want})", flush=True)
     if npre < 1:
         raise SystemExit("the undersized pool forced no preemption")
     if any(counts[k] != v for k, v in want.items()) or chunks < 1:
@@ -3140,7 +3472,9 @@ COUNTERS = {"paged_decode_attention": (dec_mod, "launches"),
             "ssd": (ssd_mod, "launches"),
             "rglru": (rg_mod, "launches"),
             "windowed_gather": (wg_mod, "launches"),
-            "rmsnorm": (norm_mod, "launches")}
+            "rmsnorm": (norm_mod, "launches"),
+            "coarsened_matmul_norm": (mm_mod, "norm_launches"),
+            "qk_norm_rope": (norm_mod, "qk_launches")}
 
 
 def zero_counts() -> None:
@@ -3220,7 +3554,9 @@ def moe_serve(cfg, params, prompts, num_pages, quant) -> dict:
                            "coarsened_matmul"))
     want = {moe_k: n_layers * (eng.prefill_steps + eng.decode_steps),
             dec_k: n_layers * eng.decode_steps,
-            "rmsnorm": step_norms(cfg) * eng.decode_steps}
+            "rmsnorm": step_norms(cfg) * eng.decode_steps,
+            "coarsened_matmul_norm": step_normed(cfg) * eng.decode_steps,
+            "qk_norm_rope": n_layers * eng.decode_steps}
     # a decode step's q, k, v, o, shared-FFN products and head on the
     # steps' route (row 2, weights dequantized first under int8); the
     # shared FFN of a full prefill chunk on row 2 (bf16) or row 10 (int8)
@@ -3234,10 +3570,9 @@ def moe_serve(cfg, params, prompts, num_pages, quant) -> dict:
     if bad or not prefill_mm:
         raise SystemExit(f"{tag}: launch counts {path} are not 24 per "
                          f"prefill chunk and decode step (MoE), 24 per "
-                         f"decode step (decode), {step_products(cfg)} and "
-                         f"{step_norms(cfg)} per decode step (the steps' "
-                         f"products and norms) and 72 per full prefill "
-                         f"chunk (shared FFN): {bad}")
+                         f"decode step (decode), {step_counts(cfg)} per "
+                         f"decode step (the steps' products and norms) and "
+                         f"72 per full prefill chunk (shared FFN): {bad}")
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
@@ -3646,10 +3981,11 @@ def invariance_phase() -> dict:
     the float32 product the FFN took at untiled rows; and their float32
     sums, `matmul.step_matmul`); the norm over d and the qk-norm over hd
     on the row kernel, each beside the float32 statistic of the torch
-    norm it replaced (mean(x^2), a probe); RoPE and SiLU*up, elementwise
-    torch ops the steps keep; then the paged attention at T = 1 against
-    T = 5 (bf16 and int8 pools).  Any op of the steps that parts fails the
-    run.  Then the route's products against their plain versions
+    norm it replaced (mean(x^2), a probe); the normed products (q, k, v,
+    gate, up and the head with the norm prologue) and `qk_norm_rope`;
+    SiLU*up, an elementwise torch op the steps keep; then the paged
+    attention at T = 1 against T = 5 (bf16 and int8 pools).  Any op of
+    the steps that parts fails the run.  Then the route's products against their plain versions
     (`step_products_hold`), and timed at M 8 and M 40 beside the plain
     version and `torch.matmul` at the same shapes, with the host time of
     one call."""
@@ -3692,10 +4028,27 @@ def invariance_phase() -> dict:
         ops_[f"qk-norm over hd ({name})"] = (
             lambda x, sc=sc: L.rmsnorm(sc, x, cfg.norm_eps, kernel=True),
             mean_sq, lambda heads=heads: (rows(1, heads, cfg.hd),))
-    ops_["RoPE"] = (lambda x, p: L.apply_rope(x, p, cfg.rope_theta), None,
-                    lambda: (rows(1, cfg.n_heads, cfg.hd),
-                             torch.randint(64, 600, (INV_ROWS, 1),
-                                           generator=gen, device="cuda")))
+    # the norms folded into what reads them: ln1 / ln2 / the final norm as
+    # the prologue of the products that read them, the q/k norms with RoPE
+    for name in ("q", "k", "v", "gate", "up", "head"):
+        wt, sc = w[name], norm(w[name].shape[0])["scale"]
+        ops_[f"normed product {name} ({wt.shape[0]}x{wt.shape[1]}), norm "
+             f"prologue"] = (
+            lambda x, wt=wt, sc=sc: L.dense(x, wt, kernel=True,
+                                            norm=(sc, cfg.norm_eps)), None,
+            lambda wt=wt: (rows(wt.shape[0]),))
+    qs, ks = norm(cfg.hd)["scale"], norm(cfg.hd)["scale"]
+
+    def qk_rows(q, k, p):
+        out = norm_mod.qk_norm_rope(q, k, p, qs, ks, cfg.norm_eps,
+                                    cfg.rope_theta)
+        return torch.cat([o.reshape(o.shape[0], -1) for o in out], dim=1)
+    ops_["qk_norm_rope (q/k norms and RoPE)"] = (
+        qk_rows, None,
+        lambda: (rows(1, cfg.n_heads, cfg.hd), rows(1, cfg.n_kv_heads,
+                                                     cfg.hd),
+                 torch.randint(64, 600, (INV_ROWS, 1), generator=gen,
+                               device="cuda")))
     ops_["SiLU*up"] = (lambda g, u: F.silu(g) * u, None,
                        lambda: (rows(cfg.d_ff), rows(cfg.d_ff)))
     bad = []
@@ -3711,7 +4064,7 @@ def invariance_phase() -> dict:
                  f"{sum(map(bool, old))} of {INV_DRAWS} draws (places "
                  f"{sorted(set().union(*old))})")
         print(f"invariance {name}: the step's op "
-              f"{'(torch, kept) ' if name in ('RoPE', 'SiLU*up') else ''}"
+              f"{'(torch, kept) ' if name == 'SiLU*up' else ''}"
               + (f"bit-equal at every place of {INV_PLACES} in "
                  f"{INV_DRAWS} draws" if not got else
                  f"PARTS at {sorted(got)}") + probe, flush=True)
@@ -3855,9 +4208,27 @@ def step_products(cfg) -> int:
 
 
 def step_norms(cfg) -> int:
-    """The row norm's launches a decode or verify step makes: ln1, ln2
-    (and the q and k norms) a layer, and the final norm."""
-    return cfg.n_layers * (2 + 2 * int(cfg.qk_norm)) + 1
+    """The row norm's launches a decode or verify step makes: an MoE
+    layer's ln2 (ln1, a dense FFN's ln2 and the final norm are the
+    prologues of the products that read them, the q and k norms
+    `qk_norm_rope`'s)."""
+    return cfg.n_layers * int(bool(cfg.n_experts))
+
+
+def step_normed(cfg) -> int:
+    """Row 2's launches with the norm prologue a decode or verify step
+    makes: q, k, v (and a dense FFN's gate and up) a layer, and the
+    head."""
+    return (3 if cfg.n_experts else 5) * cfg.n_layers + 1
+
+
+def step_counts(cfg) -> dict:
+    """Every launch count of the steps' route a decode or verify step
+    makes, beside the attention kernel's (zero counts left out)."""
+    want = {"coarsened_matmul": step_products(cfg),
+            "coarsened_matmul_norm": step_normed(cfg),
+            "qk_norm_rope": cfg.n_layers, "rmsnorm": step_norms(cfg)}
+    return {k: v for k, v in want.items() if v}
 
 
 def verify_decode_exactness(cfg, params, prompts, kv_quant: str) -> None:
@@ -3868,9 +4239,9 @@ def verify_decode_exactness(cfg, params, prompts, kv_quant: str) -> None:
     every slot, and the pools each leaves behind (the rows each wrote) bit
     for bit, over EXACT_DRAWS draws of random draft tokens; a verify whose
     mask is shifted by one must part.  Each step launches row 2's kernel
-    for every product (`step_products`), the row norm for every norm
-    (`step_norms`) and the rows kernel once a layer (paged decode,
-    verify)."""
+    for every product (`step_products`; with the norm prologue
+    `step_normed`), `qk_norm_rope` once a layer and the rows kernel once
+    a layer (paged decode, verify; `step_counts`)."""
     eng = PagedEngine(cfg, params, slots=SLOTS,
                       num_pages=SLOTS * pages_needed(MAX_LEN, PAGE) + 1,
                       page_size=PAGE, max_len=MAX_LEN, chunk=CHUNK,
@@ -3885,8 +4256,7 @@ def verify_decode_exactness(cfg, params, prompts, kv_quant: str) -> None:
     bt = torch.as_tensor(eng.bt.device(), device="cuda")
     c = eng.cfg
     int8 = "_int8" if kv_quant == "int8" else ""
-    want = {"coarsened_matmul": step_products(cfg),
-            "rmsnorm": step_norms(cfg),
+    want = {**step_counts(cfg),
             "paged_decode_attention" + int8: cfg.n_layers,
             "verify_attention" + int8: cfg.n_layers}
 
@@ -3899,7 +4269,7 @@ def verify_decode_exactness(cfg, params, prompts, kv_quant: str) -> None:
         out = run()
         got = {k: v for k, v in read_counts().items() if v}
         need = {k: v for k, v in want.items()
-                if k in ("coarsened_matmul", "rmsnorm") or k.startswith(what)}
+                if k in step_counts(cfg) or k.startswith(what)}
         if got != need:
             raise SystemExit(f"one {what} step launched {got}, not {need}")
         return out
@@ -4639,7 +5009,7 @@ def main(argv=None) -> None:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         t_kernels = time.perf_counter()
         kernels = [decode_phase(gen), matmul_phase(gen), rmsnorm_phase(gen),
-                   *flash_phase(gen)]
+                   *step_norms_phase(gen), *flash_phase(gen)]
         d256 = flash256_phase(gen)
         flash_geometry_phase(gen)
         flash_bwd_geometry_phase(gen)

@@ -45,7 +45,7 @@ SIGNATURES = {
         "split_kv_instance": [_I, _P, _I, _P, _P],
     },
     "matmul": {
-        "coarsened_matmul_bf16": [_P] * 3 + [_I] * 9 + [_P],
+        "coarsened_matmul_bf16": [_P] * 4 + [_I] * 11 + [_F, _P],
         "coarsened_matmul_instance": [_I, _P, _I, _P, _P],
     },
     "flash_attention": {
@@ -93,6 +93,7 @@ SIGNATURES = {
     },
     "rmsnorm": {
         "rmsnorm_bf16": [_P] * 3 + [_I] * 2 + [_F, _P],
+        "qk_norm_rope_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
 }
 

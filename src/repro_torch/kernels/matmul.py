@@ -32,7 +32,10 @@ count or the row's place, so a row of a T-row verify pass equals the same
 row of a decode step.  At base the kernel takes any row count and N % 8
 (the last tiles read TMA's zero fill and are not stored, `step_takes`)
 and a K-major weight (the transpose of a contiguous (n, k) tensor, such as
-a tied embedding read as the head), read in place.
+a tied embedding read as the head), read in place.  A step product may
+take the RMSNorm of its rows as a prologue (``norm``): the decode and
+verify steps' ln1, dense ln2 and final norm launch no kernel of their
+own.
 
 On CPU tensors the wrappers compute the plain versions (`ref.matmul`,
 `ref.quant_matmul`); on CUDA tensors they launch the kernel or raise.
@@ -53,8 +56,12 @@ BM, BN, BK = 64, 64, 32             # row block, column box, the K rule
 MAX_TILE_PRODUCT = 4                # degree * vector_width, register budget
 MM_KSTEP = 64                       # K rows a stage of the ring (`KSTEP`)
 MM_BLOCKS_PER_SM = 1                # the split's aim (`mm_split_plan`)
+NORM_CLUSTER = 8                    # blocks sharing a tile's row statistic
+NORM_BLOCKS_PER_SM = 2              # the normed instance's occupancy
+NORM_OWN_ROWS = 8                   # a tile's rows a block norms alone
 
 launches = 0                        # kernel launches since the last reset
+norm_launches = 0                   # of them, with the norm prologue
 q_launches = 0                      # dequant-fused launches since the reset
 
 # the K split over a cluster's blocks, shared by both kernels
@@ -115,10 +122,12 @@ class SplitPlan:
     """How a K-split kernel cuts an (m,k) @ (k,n) product: K into
     ``splits`` slices of whole ``unit``-row pieces (the blocks of one
     cluster; the last piece may reach past K); the grid (splits, output
-    tile columns, output tile rows)."""
+    tile columns, output tile rows); a cluster is ``splits`` x
+    ``cluster_y`` blocks (`step_plan` with ``norm``)."""
     splits: int
     unit: int
     grid: tuple
+    cluster_y: int = 1
 
     @property
     def blocks(self) -> int:
@@ -184,15 +193,49 @@ def _mm_plan(m: int, n: int, k: int, c: int, vw: int, sms: int) -> SplitPlan:
                       fill=False)
 
 
-def step_plan(m: int, n: int, k: int, sms: int) -> SplitPlan:
+def step_plan(m: int, n: int, k: int, sms: int,
+              norm: bool = False) -> SplitPlan:
     """The K split of a decode or verify step's (m,k) @ (k,n) product: the
     plan `mm_split_plan` makes for ONE 64-row tile (N padded to whole
     64-column boxes), whatever ``m``, and a grid of ceil(m / 64) row tiles.
     The splits depend on (n, k) alone, so every row is summed in one order
-    at every row count."""
+    at every row count.
+
+    With ``norm`` (the norm prologue) the same split.  Where K is split
+    and a tile holds more than `NORM_OWN_ROWS` rows (a verify pass's), the
+    cluster grows to `NORM_CLUSTER` blocks (``cluster_y`` column tiles of
+    the split's slices), whose consumer warps share out the tile's row
+    statistics (`norm_stat_rows`); the grid's columns are then whole
+    clusters (blocks past the tiles store nothing).  Without a split the
+    grid's columns are the blocks that fit the card
+    (`NORM_BLOCKS_PER_SM` an SM), each walking the column tiles that many
+    apart and computing its rows' statistics itself."""
     one = _mm_plan(BM, -(-n // BN) * BN, k, 1, 1, sms)
-    return SplitPlan(one.splits, one.unit,
-                     (one.splits, one.grid[1], -(-m // BM)))
+    tiles, rows = -(-n // BN), -(-m // BM)
+    if not norm:
+        return SplitPlan(one.splits, one.unit, (one.splits, tiles, rows))
+    shared = one.splits > 1 and min(m, BM) > NORM_OWN_ROWS
+    cy = max(1, NORM_CLUSTER // one.splits) if shared else 1
+    cols = tiles
+    if one.splits == 1:
+        places = NORM_BLOCKS_PER_SM * sms // rows // cy * cy
+        if cy <= places < tiles:
+            cols = places
+    cols = -(-cols // cy) * cy
+    return SplitPlan(one.splits, one.unit, (one.splits, cols, rows), cy)
+
+
+def norm_stat_rows(gw: int, nw: int, live: int) -> list:
+    """The rows of a tile of ``live`` rows whose statistic warp ``gw`` of
+    ``nw`` consumer warps computes in the norm prologue (`row_stats`): 4,
+    a block's own; 4 x the cluster's blocks where they share it (a tile of
+    more than `NORM_OWN_ROWS` rows in a cluster of more than one block;
+    the r of row j is then read from block (j % nw) // 4).  Rows gw + nw
+    j, in passes of the rows read at once: 2 where a warp has at most 2
+    (one round trip), else 4."""
+    rows = list(range(gw, live, nw))
+    r = 2 if live <= 2 * nw else 4
+    return [rows[i:i + r] for i in range(0, len(rows), r)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,14 +302,27 @@ def instances() -> list[tuple[str, int, int]]:
 def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
                      cfg: CoarseningConfig | str = BASE,
                      plan: SplitPlan | None = None, *,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32,
+                     norm: tuple | None = None) -> torch.Tensor:
     """(m,k) @ (k,n) -> (m,n) float32 through the coarsened kernel (bf16
     with ``out_dtype``: the float32 sums rounded on the store, as a cast of
     the float32 result).  ``plan`` overrides `mm_split_plan` (to measure
     other splits, and the steps' `step_plan`).  At base (degree 1, vector
     width 1) the rows and N need not tile (`step_takes`) and ``b`` may be
-    K-major (the transpose of a contiguous (n, k) tensor)."""
-    global launches
+    K-major (the transpose of a contiguous (n, k) tensor).
+
+    ``norm`` = (scale (k,) float32, eps), base only: rmsnorm(a) @ b in one
+    launch.  Each consumer warp computes its rows' statistic before the
+    main loop (the row norm kernel's lane walk and shuffle tree) and forms
+    wgmma's A operand in registers from the staged rows, normed and
+    rounded to bf16 as the row norm kernel rounds them (`norm_frag_map`
+    states the registers' places), so the product equals `rmsnorm` then
+    the product bit for bit (on CPU tensors: `ref.rmsnorm`, then the
+    plain product).  Its plan is `step_plan`'s with ``norm`` (the
+    default): the blocks of a cluster share out the tile's row statistics,
+    and without a K split each block walks column tiles ``plan.grid[1]``
+    apart."""
+    global launches, norm_launches
     cfg = resolve(cfg)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
@@ -282,7 +338,17 @@ def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"matmul kernel writes float32 or bf16, not "
                         f"{out_dtype}")
+    if norm is not None:
+        scale, eps = norm
+        if not ragged:
+            raise ValueError(f"matmul: the norm prologue is base's only, "
+                             f"not {cfg.label}")
+        if scale.shape != (k,):
+            raise ValueError(f"matmul: norm scale {tuple(scale.shape)} for "
+                             f"rows of {k}")
     if a.device.type == "cpu" and b.device.type == "cpu":
+        if norm is not None:
+            a = ref.rmsnorm(a, scale, eps)
         return ref.matmul(a, b).to(out_dtype)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"matmul operands on {a.device} and {b.device}")
@@ -294,28 +360,63 @@ def coarsened_matmul(a: torch.Tensor, b: torch.Tensor,
                          "also a transposed contiguous weight)")
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("matmul kernel needs 16-byte aligned operands")
+    sp = 0
+    if norm is not None:
+        if scale.device != a.device or scale.dtype != torch.float32 \
+                or not scale.is_contiguous() or scale.data_ptr() % 16:
+            raise ValueError("matmul: the norm scale must be a contiguous, "
+                             "16-byte aligned float32 tensor on a's device")
+        sp = scale.data_ptr()
     if plan is None:
-        plan = mm_split_plan(m, n, k, cfg, sm_count(a.device))
+        plan = (step_plan(m, n, k, sm_count(a.device), norm=True)
+                if norm is not None else
+                mm_split_plan(m, n, k, cfg, sm_count(a.device)))
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     rc = _build.library("matmul").coarsened_matmul_bf16(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, cfg.degree,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), sp, m, n, k, cfg.degree,
         cfg.vector_width, int(cfg.kind == KIND_GAPPED), int(kmajor),
-        int(out_dtype == torch.bfloat16), plan.splits,
+        int(out_dtype == torch.bfloat16), plan.splits, plan.grid[1],
+        plan.cluster_y, float(norm[1]) if norm is not None else 0.0,
         torch._C._cuda_getCurrentRawStream(a.device.index))
     _build.check(rc, "coarsened_matmul_bf16")
     launches += 1
+    norm_launches += norm is not None
     return out
 
 
 def step_matmul(a: torch.Tensor, b: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                norm: tuple | None = None) -> torch.Tensor:
     """(m,k) @ (k,n) -> (m,n) for a decode or verify step: the coarsened
     kernel at base under `step_plan`, so each row's bits depend on that
     row alone (on CPU tensors, the plain float32 product), float32 or
-    rounded to ``out_dtype`` on the store."""
+    rounded to ``out_dtype`` on the store; ``norm`` = (scale, eps):
+    rmsnorm(a) @ b in the same launch (`coarsened_matmul`)."""
     plan = None if a.device.type == "cpu" else step_plan(
-        a.shape[0], b.shape[1], a.shape[1], sm_count(a.device))
-    return coarsened_matmul(a, b, BASE, plan, out_dtype=out_dtype)
+        a.shape[0], b.shape[1], a.shape[1], sm_count(a.device),
+        norm=norm is not None)
+    return coarsened_matmul(a, b, BASE, plan, out_dtype=out_dtype,
+                            norm=norm)
+
+
+def norm_frag_map(warp: int, lane: int, ks: int) -> list:
+    """The norm prologue's A fragment of k16 step ``ks`` in consumer
+    thread (warp, lane), as `csrc/matmul.cu` loads it: one ldmatrix.x4 for
+    which lane i gives the address of row i % 8 of 8x8 matrix i // 8
+    (rows 16 warp + i % 8 + 8 ((i // 8) & 1), 16-byte chunk 2 ks + i // 16
+    of the swizzled stage); register j then holds matrix j's row g =
+    lane // 4, elements 2t, 2t + 1 (t = lane % 4).  Returns, for registers
+    0..3 and their low and high halves, the byte offsets in the stage (TMA
+    stores a 64-row, 128-byte-row tile with the 128-byte swizzle: 16-byte
+    chunk c of row r at chunk c ^ (r % 8))."""
+    def address(i):
+        row = 16 * warp + i % 8 + 8 * ((i // 8) & 1)
+        chunk = 2 * ks + i // 16
+        return row * 128 + ((chunk ^ (row % 8)) << 4)
+
+    g, t = lane // 4, lane % 4
+    return [[address(8 * j + g) + 4 * t + 2 * e for e in (0, 1)]
+            for j in range(4)]
 
 
 def quant_matmul(a: torch.Tensor, qw: QTensor,

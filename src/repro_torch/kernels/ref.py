@@ -8,6 +8,7 @@ these results.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -28,6 +29,45 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                             device=device) / hd))
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    """(hd/2,) float32 1 / theta^(2i/hd), computed by torch once per (hd,
+    theta, device) and kept (callers only read it)."""
+    return _rope_freqs(hd, float(theta), torch.device(device or "cpu"))
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor,
+         freqs: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,H,D); pos: (B,S) int.  Interleaved pairs (x[..., ::2],
+    x[..., 1::2]) rotated in float32 (`repro/models/layers.py:103`)."""
+    ang = pos[..., None].float() * freqs                     # (B,S,D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, pos: torch.Tensor,
+                 q_scale, k_scale, eps: float, freqs: torch.Tensor):
+    """A step's q (..., H, D) and k (..., Hkv, D), their leading dims (B, T)
+    or B * T, the rows of ``pos`` (B, T): `rmsnorm` per head (skipped
+    where the scales are None) then `rope`, in q's and k's shapes and
+    dtypes."""
+    out = []
+    for x, sc in ((q, q_scale), (k, k_scale)):
+        y = x.reshape(*pos.shape, *x.shape[-2:])
+        if sc is not None:
+            y = rmsnorm(y, sc, eps)
+        out.append(rope(y, pos, freqs).reshape(x.shape))
+    return tuple(out)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,8 @@ is not ported) and raises for them.
 The decode and verify blocks run their dense products and norms as a
 step (`layers.step_kernel`): under a kernel ``ffn_backend`` on
 row-invariant kernels, so a row's bits do not depend on the step's row
-count.  Prefill and training keep theirs.
+count; ln1 and a dense FFN's ln2 run as the prologue of the products that
+read them.  Prefill and training keep theirs.
 """
 from __future__ import annotations
 
@@ -128,8 +129,8 @@ def attn_block_decode(p, x, cfg: ModelConfig, cache, *, kind: str, pos):
     Returns (x, cache) with ``cache`` the same dict."""
     window = cfg.window if kind == ATTN_LOCAL else None
     kern = L.step_kernel(cfg, True)
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, kernel=kern)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None], step=True)
+    q, k, v = L.qkv_project(p["attn"], x, cfg, pos[:, None], step=True,
+                            ln=p["ln1"])
     _write_contig(cache, pos[:, None], k, v)
     o = L.decode_attention(q, cache["k"], cache["v"], pos, window=window,
                            backend=cfg.decode_backend,
@@ -187,9 +188,14 @@ def _paged_rows(block_table, pos, page_size):
 def _ffn_out(p, x, cfg: ModelConfig, moe_capacity=None, step: bool = False):
     """x + FFN(ln2(x)); MoE layers with ``moe_capacity`` (the reference's
     decode and prefill capacities); a decode or verify ``step`` takes the
-    step's norm and products."""
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps,
-                  kernel=L.step_kernel(cfg, step))
+    step's norm and products: on `layers.step_kernel`'s route a dense
+    FFN's ln2 is the gate and up products' prologue, an MoE layer's (read
+    by the router, the experts and the shared expert) the row norm."""
+    kern = L.step_kernel(cfg, step)
+    if kern and not cfg.n_experts:
+        return x + L.ffn(p["ffn"], x, backend=cfg.ffn_backend, step=True,
+                         norm=(p["ln2"]["scale"], cfg.norm_eps))
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps, kernel=kern)
     if cfg.n_experts:
         y, _ = L.moe(p["moe"], h, cfg, capacity=moe_capacity, step=step)
         return x + y
@@ -235,8 +241,8 @@ def attn_decode_paged(p, x, cfg: ModelConfig, cache, *, kind: str, pos,
     window = cfg.window if kind == ATTN_LOCAL else None
     ps = cache["k"].shape[1]
     kern = L.step_kernel(cfg, True)
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, kernel=kern)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, pos[:, None], step=True)
+    q, k, v = L.qkv_project(p["attn"], x, cfg, pos[:, None], step=True,
+                            ln=p["ln1"])
     page, row = _paged_rows(block_table, pos, ps)
     if write_mask is not None:
         page = torch.where(write_mask, page, torch.zeros_like(page))
@@ -317,8 +323,7 @@ def attn_block_verify_paged(p, x, cfg: ModelConfig, cache, *, kind: str,
     window = cfg.window if kind == ATTN_LOCAL else None
     pos = pos0.long()[:, None] + torch.arange(t, device=x.device)[None]
     kern = L.step_kernel(cfg, True)
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, kernel=kern)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, pos, step=True)
+    q, k, v = L.qkv_project(p["attn"], x, cfg, pos, step=True, ln=p["ln1"])
     page, row = _paged_rows(block_table, pos, ps)
     if valid_len is not None:
         live = torch.arange(t, device=x.device)[None] < valid_len[:, None]

@@ -18,8 +18,11 @@ product and every norm under a kernel ``ffn_backend`` on row-invariant
 kernels: the coarsened matmul at base under a K split planned for one
 64-row tile (`dense`) and the row RMSNorm (`rmsnorm`).  A row's bits then do
 not depend on how many rows the step holds, so row t of a verify pass
-equals the decode step at the same position (RoPE and SiLU*up are
-elementwise).  Prefill and training keep their products and norms.
+equals the decode step at the same position (SiLU*up is elementwise).
+The norms that a product reads (ln1, a dense FFN's ln2, the final norm)
+run as that product's prologue (`dense` with ``norm``), and the q/k norms
+with RoPE as one rows kernel (`qkv_project`); an MoE layer's ln2 keeps
+the row norm.  Prefill and training keep their products and norms.
 """
 from __future__ import annotations
 
@@ -117,54 +120,59 @@ def rmsnorm(p, x, eps=1e-6, *, kernel: bool = False):
     return ref.rmsnorm(x, p["scale"], eps)
 
 
-def dense(x, w, *, kernel: bool = False):
+def dense(x, w, *, kernel: bool = False, norm=None):
     """x (..., k) @ w (k, n) in x's dtype (`asdense(w, x.dtype)`, as the
     reference).  With ``kernel`` (a step's, `step_kernel`) the coarsened
     matmul kernel at base under its one-tile K split (`matmul.step_matmul`;
     on CPU tensors the plain float32 product), the float32 sums rounded
     to x's dtype on the store as the reference's product rounds them;
-    ``w`` may then be K-major (a tied embedding's transpose)."""
+    ``w`` may then be K-major (a tied embedding's transpose).  ``norm`` =
+    (scale, eps), ``kernel`` only: rmsnorm(x) @ w in the same launch, the
+    row statistic and the scale applied in the kernel's prologue, bit for
+    bit the row norm kernel's output multiplied."""
     w = asdense(w, x.dtype)
     if not kernel:
+        if norm is not None:
+            raise ValueError("dense: a norm prologue is the steps' route's "
+                             "(kernel=True) only")
         return x @ w
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("the steps' products have no backward: the "
                            "decode and verify steps run without autograd")
     k, n = w.shape
     y = _matmul.step_matmul(x.reshape(-1, k).contiguous(), w,
-                            out_dtype=x.dtype)
+                            out_dtype=x.dtype, norm=norm)
     return y.view(*x.shape[:-1], n)
-
-
-def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                         device=device) / hd))
 
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
     """x: (B,S,H,D); pos: (B,S) int.  Interleaved pairs (x[..., ::2],
-    x[..., 1::2]) rotated in float32, as the reference."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
-    ang = pos[..., None].float() * freqs                     # (B,S,D/2)
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
-    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.reshape(x.shape).to(x.dtype)
+    x[..., 1::2]) rotated in float32, as the reference (`ref.rope`)."""
+    return ref.rope(x, pos, ref.rope_freqs(x.shape[-1], theta, x.device))
 
 
-def qkv_project(p, x, cfg: ModelConfig, pos, *, step: bool = False):
+def qkv_project(p, x, cfg: ModelConfig, pos, *, step: bool = False,
+                ln=None):
     """x: (B,S,d) -> q (B,S,H,hd), k, v (B,S,Hkv,hd) with qk-norm and RoPE;
     a decode or verify ``step`` takes `step_kernel`'s products and
-    norms."""
+    norms.  ``ln`` (a step's, with the un-normed x): the block's ln1
+    parameters, applied first; on `step_kernel`'s route each of the q, k
+    and v products takes it as its prologue, and the q/k norms and RoPE
+    run in one launch (`kernels.rmsnorm.qk_norm_rope`)."""
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
     b, s, _ = x.shape
     hd, nq, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     kern = step_kernel(cfg, step)
-    q = dense(x, p["wq"], kernel=kern)
-    k = dense(x, p["wk"], kernel=kern)
-    v = dense(x, p["wv"], kernel=kern)
+    norm = None
+    if ln is not None:
+        if kern:
+            norm = (ln["scale"], cfg.norm_eps)
+        else:
+            x = rmsnorm(ln, x, cfg.norm_eps)
+    q = dense(x, p["wq"], kernel=kern, norm=norm)
+    k = dense(x, p["wk"], kernel=kern, norm=norm)
+    v = dense(x, p["wv"], kernel=kern, norm=norm)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -172,9 +180,15 @@ def qkv_project(p, x, cfg: ModelConfig, pos, *, step: bool = False):
     q = q.reshape(b, s, nq, hd)
     k = k.reshape(b, s, nkv, hd)
     v = v.reshape(b, s, nkv, hd)
+    if kern:
+        qs, ks = ((p["qnorm"]["scale"], p["knorm"]["scale"]) if cfg.qk_norm
+                  else (None, None))
+        q, k = _norm.qk_norm_rope(q, k, pos, qs, ks, cfg.norm_eps,
+                                  cfg.rope_theta)
+        return q, k, v
     if cfg.qk_norm:
-        q = rmsnorm(p["qnorm"], q, cfg.norm_eps, kernel=kern)
-        k = rmsnorm(p["knorm"], k, cfg.norm_eps, kernel=kern)
+        q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(p["knorm"], k, cfg.norm_eps)
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
                                                           cfg.rope_theta), v
 
@@ -511,7 +525,8 @@ def verify_attention(q, k_pool, v_pool, block_table, pos0, *, window=None,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def ffn(p, x, *, backend: str = "ref", cfg="auto", step: bool = False):
+def ffn(p, x, *, backend: str = "ref", cfg="auto", step: bool = False,
+        norm=None):
     """SwiGLU FFN (`repro/models/layers.py:631`).  With a kernel backend the
     gate, up and down products take the coarsened matmul kernel whenever
     the rows tile as the reference requires (T % 128, d % 256, d_ff % 256);
@@ -530,15 +545,18 @@ def ffn(p, x, *, backend: str = "ref", cfg="auto", step: bool = False):
     A decode or verify ``step`` under a kernel backend takes the steps'
     products (`dense` with ``kernel``) for all three whatever the rows (quantized weights
     dequantized first), so that each row's bits do not depend on the row
-    count."""
+    count; ``norm`` (the block's ln2 as (scale, eps), x un-normed) is then
+    the gate and up products' prologue."""
     shp = x.shape
     xt = x.reshape(-1, shp[-1])
     t, d = xt.shape
     kernel = _uses_kernel(backend)
     if kernel and step:
-        h = F.silu(dense(xt, p["w1"], kernel=True)) * dense(xt, p["w3"],
-                                                            kernel=True)
+        h = F.silu(dense(xt, p["w1"], kernel=True, norm=norm)) * dense(
+            xt, p["w3"], kernel=True, norm=norm)
         return dense(h, p["w2"], kernel=True).reshape(shp)
+    if norm is not None:
+        raise ValueError("ffn: a norm prologue is the steps' route's only")
     if isinstance(p["w1"], QTensor):
         d_ff = p["w1"].shape[-1]
         g = p["w1"].group or 256

@@ -132,11 +132,15 @@ def _head(params, cfg: ModelConfig):
 
 def _logits(params, x, cfg: ModelConfig, step: bool = False):
     """Final norm + head on (..., d) rows -> float32 (..., vocab); a decode
-    or verify ``step`` takes the step's norm and product (a tied head read
-    K-major in place)."""
-    kern = L.step_kernel(cfg, step)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, kernel=kern)
-    logits = L.dense(x, _head(params, cfg), kernel=kern).float()
+    or verify ``step`` takes the step's product (a tied head read K-major
+    in place) with the final norm as its prologue."""
+    if L.step_kernel(cfg, step):
+        logits = L.dense(x, _head(params, cfg), kernel=True,
+                         norm=(params["final_norm"]["scale"],
+                               cfg.norm_eps)).float()
+    else:
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.dense(x, _head(params, cfg)).float()
     return logits[..., : cfg.vocab]               # drop pad-vocab ids
 
 
